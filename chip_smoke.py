@@ -1,24 +1,43 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (modem_tpu_torch) on one GPU.
 
-Drives the serving decode as a user would: BatchPipeline(8000, 6,
-list_size=1, device="cuda") on batches of 512 mode-6 recordings made by
-the port's own encoder, with the SC kernel built from csrc/ by nvcc.
+Drives the serving decode as a user would: AdaptivePipeline(8000, 6,
+device="cuda") on batches of 512 mode-6 recordings made by the port's
+own encoder, every frame through the SC kernel and the frames whose CRC
+fails through the exact list-8 kernel, both built from csrc/ by nvcc.
 
 Phases:
   1. the card's name and power limit (nvidia-smi);
-  2. build the SC kernel (nvcc, sm_90a) and report the build seconds;
-  3. the kernel against its plain PyTorch version on 64 noisy wire-size
-     frames (noise at which plain SC loses some frames): codewords equal
-     on every frame, path metrics within rtol 1e-4;
-  4. the main path: 4 sets of 512 distinct seeded payloads encoded on
+  2. build both kernels (nvcc, sm_90a, one process each, in parallel)
+     and report the build seconds and ptxas lines;
+  3. the SC kernel against its plain PyTorch version on 64 noisy
+     wire-size frames (noise at which plain SC loses some frames):
+     codewords equal on every frame, path metrics within rtol 1e-4;
+  4. the list-8 kernel against its plain version on 16 noisy wire-size
+     frames at sigma 0.70, the first 8 of which are bench.py's parity
+     batch: the same per-frame recovery of the sent codeword (as
+     bench.scl_parity_check), the same codeword list on every frame, and
+     the sorted path metrics within rtol 1e-4;
+  5. the list-8 kernel against the bit-by-bit oracle: the 500 frames of
+     bench/ab_scl.py (sigma 0.64-0.76, 100 each) must recover the sent
+     codeword exactly where bench/ab_scl_oracle_64800.json says;
+  6. the main path: 4 sets of 512 distinct seeded payloads encoded on
      the card and padded with silence; one warm-up batch, then 5 timed
-     runs over 3 disjoint batches (median frames/s); every frame must
-     decode ok and byte-exact, and the kernel's launch counter must
-     count every batch; then the front-end and SC
-     times per batch, the kernel against the plain version at the main
-     path's shape, and the peak device memory;
-  5. the frozen golden recording tests/data/golden_mode6_galois.wav
+     runs over 3 disjoint batches in bench.py's pipelined loop (dispatch
+     batch i, then resolve batch i - 1), median frames/s; every frame
+     must decode ok and byte-exact with no escalation, and the SC
+     kernel's launch count must equal the number of batches; then the
+     front-end and SC times per batch, the SC kernel against the plain
+     version at the main path's shape, and the peak device memory;
+  7. escalation at wire size: 64 recordings with complex AWGN at a level
+     where SC fails on part of them: the adaptive result equals
+     BatchPipeline(list_size=8)'s on every key, frames escalate, at
+     least one frame that SC lost decodes byte-exact, and the list-8
+     kernel launched; the noisy batch dispatched before a clean one and
+     resolved while that one is in flight equals decode_batch on every
+     key, as does the clean one; the escalation cost (noisy against
+     clean decode_batch ms);
+  8. the frozen golden recording tests/data/golden_mode6_galois.wav
      decoded byte-exact on the card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Prints a
@@ -35,6 +54,7 @@ import subprocess
 import sys
 import time
 import wave
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -47,6 +67,15 @@ PARITY_FRAMES = 64
 PARITY_SIGMA = 0.68      # plain SC loses some of these frames
 PARITY_SEED = 1234
 PM_RTOL = 1e-4           # f32 leaf sums reduced in another order
+LIST_SIZE = 8
+FALLBACK_BATCH = 16      # AdaptivePipeline's list-decoder batch
+SCL_FRAMES = 16          # the first 8 are bench.parity_llrs's batch
+SCL_SIGMA = 0.70         # the list decoder's sensitivity edge
+ORACLE_SIGMAS = (0.64, 0.68, 0.7, 0.72, 0.76)
+ORACLE_FRAMES = 100
+ESC_FRAMES = 64
+ESC_SIGMA = 0.128        # complex AWGN per component: SC fails on part
+ESC_SEED = 5
 
 
 def check(cond, msg: str) -> None:
@@ -76,6 +105,38 @@ def parity_llrs(code, frames: int, sigma: float):
     return llrs.float(), cw
 
 
+def oracle_llrs(code, sigma: float, frames: int, dev):
+    """The frames of bench/ab_scl.py at sigma (seed sigma*1000*100000 +
+    i, one codeword each), encoded on ``dev``: (llrs [frames, code_len]
+    f32, codewords [frames, code_len])."""
+    mesg, noise = [], []
+    for i in range(frames):
+        rng = np.random.default_rng(int(sigma * 1000) * 100000 + i)
+        m = rng.integers(0, 2, code.mesg_bits, dtype=np.uint8)
+        m[code.k:] = 0
+        mesg.append(m)
+        noise.append(rng.standard_normal(code.n))
+    cw = code.encode_systematic(torch.from_numpy(np.stack(mesg)).to(dev))
+    tx = 1.0 - 2.0 * code.shorten(cw).double()
+    rx = tx + sigma * torch.from_numpy(np.stack(noise)).to(dev)
+    return code.lengthen(2.0 * rx / sigma ** 2).float().contiguous(), cw
+
+
+def recovered(cws, cw) -> torch.Tensor:
+    """[B, L, n] lists, [n] or [B, n] sent codewords -> [B] bool: the
+    sent codeword is in the list."""
+    if cw.dim() == 1:
+        cw = cw[None]
+    return (cws == cw[:, None, :].to(cws.device)).all(dim=2).any(dim=1)
+
+
+def same_lists(a, b) -> int:
+    """Frames whose two lists [L, n] hold the same codewords."""
+    return sum(torch.equal(torch.unique(x.long(), dim=0),
+                           torch.unique(y.long(), dim=0))
+               for x, y in zip(a, b))
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call of fn over reps calls, CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -86,6 +147,16 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_vs_plain_ms(kernel, plain, reps: int):
+    """(kernel ms, plain ms) in turns: plain, kernel, kernel, plain."""
+    kernel()
+    p1 = cuda_ms(plain, 1)
+    k1 = cuda_ms(kernel, reps)
+    k2 = cuda_ms(kernel, reps)
+    p2 = cuda_ms(plain, 1)
+    return (k1 + k2) / 2, (p1 + p2) / 2
 
 
 def read_golden():
@@ -99,6 +170,19 @@ def read_golden():
     return (x[:, 0] + 1j * x[:, 1]).astype(np.complex64)
 
 
+def build_all(libraries: dict) -> dict:
+    """Build every kernel library at once, one nvcc each; returns the
+    seconds each took (a failed build raises)."""
+    def timed(load):
+        t0 = time.perf_counter()
+        load()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        jobs = {k: pool.submit(timed, v) for k, v in libraries.items()}
+    return {k: job.result() for k, job in jobs.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -108,11 +192,14 @@ def main() -> int:
     from modem_tpu_torch.encoder import Encoder
     from modem_tpu_torch.fec.polar import PolarCode
     from modem_tpu_torch.kernels import _build
-    from modem_tpu_torch.kernels.sc_decode import (ScPlan, _library,
-                                                   sc_decode,
+    from modem_tpu_torch.kernels import sc_decode as sc_mod
+    from modem_tpu_torch.kernels import scl_decode as scl_mod
+    from modem_tpu_torch.kernels.sc_decode import (ScPlan, sc_decode,
                                                    sc_decode_reference)
+    from modem_tpu_torch.kernels.scl_decode import (scl_decode,
+                                                    scl_decode_reference)
     from modem_tpu_torch.numerology import make_config
-    from modem_tpu_torch.pipeline import BatchPipeline
+    from modem_tpu_torch.pipeline import AdaptivePipeline, BatchPipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -127,16 +214,19 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
-    _library()
-    build_s = time.perf_counter() - t0
-    print(f"build: sc_decode.cu in {build_s:.2f} s")
-    log = _build.library_path("sc_decode").with_suffix(".log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+    build_s = build_all({"sc_decode": sc_mod._library,
+                         "scl_decode": scl_mod._library})
+    print(f"build: both kernels in {time.perf_counter() - t0:.2f} s ("
+          + ", ".join(f"{k}.cu {v:.2f} s" for k, v in build_s.items())
+          + ")")
+    for name in build_s:
+        log = _build.library_path(name).with_suffix(".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {name}:", line.strip())
 
-    # ---- 3. kernel vs plain version, noisy wire-size frames -------------
+    # ---- 3. SC kernel vs plain version, noisy wire-size frames ----------
     code = PolarCode(64800, 43072, 16)
     plan = ScPlan.from_frozen(code.frozen)
     llrs, cw = parity_llrs(code, PARITY_FRAMES, PARITY_SIGMA)
@@ -144,17 +234,67 @@ def main() -> int:
     cw_k, pm_k = sc_decode(llrs, plan)
     cw_r, pm_r = sc_decode_reference(llrs, plan.sched)
     torch.cuda.synchronize()
-    hits = int((cw_k[:, 0].cpu() == cw).all(dim=1).sum())
+    hits = int(recovered(cw_k, cw).sum())
     parity_err = float((pm_k - pm_r).abs().max())
-    print(f"parity: {PARITY_FRAMES} frames at sigma {PARITY_SIGMA}: "
+    print(f"parity A: {PARITY_FRAMES} frames at sigma {PARITY_SIGMA}: "
           f"{hits} decode the sent codeword; codewords equal: "
           f"{bool(torch.equal(cw_k, cw_r))}; max |pm diff| {parity_err}")
-    check(torch.equal(cw_k, cw_r), "kernel codewords differ from plain")
+    check(torch.equal(cw_k, cw_r), "SC kernel codewords differ from plain")
     check(torch.allclose(pm_k, pm_r, rtol=PM_RTOL, atol=0.0),
-          "kernel path metrics differ from plain")
+          "SC kernel path metrics differ from plain")
     check(0 < hits < PARITY_FRAMES, "noise point does not split outcomes")
 
-    # ---- 4. the main path ----------------------------------------------
+    # ---- 4. list-8 kernel vs plain version -------------------------------
+    llrs_b, cw = parity_llrs(code, SCL_FRAMES, SCL_SIGMA)
+    llrs_b = llrs_b.to(dev)
+    cw_k, pm_k = scl_decode(llrs_b, plan, LIST_SIZE)
+    cw_r, pm_r = scl_decode_reference(llrs_b, plan.sched, LIST_SIZE)
+    torch.cuda.synchronize()
+    hits_k, hits_r = recovered(cw_k, cw), recovered(cw_r, cw)
+    pm_k_s, pm_r_s = pm_k.sort(dim=1).values, pm_r.sort(dim=1).values
+    scl_err = float((pm_k_s - pm_r_s).abs().max())
+    scl_rel = float(((pm_k_s - pm_r_s).abs() / pm_r_s.abs()).max())
+    print(f"parity B: {SCL_FRAMES} frames at sigma {SCL_SIGMA}: kernel "
+          f"recovers {int(hits_k.sum())}, plain {int(hits_r.sum())}; "
+          f"identical codeword sets on {same_lists(cw_k, cw_r)} frames "
+          f"({same_lists(cw_k[:8], cw_r[:8])} of bench.py's 8); max "
+          f"|sorted pm diff| {scl_err} ({scl_rel:.3g} relative)")
+    # bench.scl_parity_check asks for the same recovery and pm within
+    # 1 %; the kernel keeps the plain version's lists outright
+    check(torch.equal(hits_k, hits_r) and bool(hits_k.any()),
+          "list kernel recovers other frames than its plain version")
+    check(same_lists(cw_k, cw_r) == SCL_FRAMES,
+          "list kernel lists differ from its plain version's")
+    check(torch.allclose(pm_k_s, pm_r_s, rtol=PM_RTOL, atol=0.0),
+          "list kernel path metrics differ from plain")
+    b_ms = {}
+    for n_frames in (FALLBACK_BATCH, 8):
+        x = llrs_b[:n_frames].contiguous()
+        b_ms[n_frames] = kernel_vs_plain_ms(
+            lambda: scl_decode(x, plan, LIST_SIZE),
+            lambda: scl_decode_reference(x, plan.sched, LIST_SIZE), 5)
+    print("list-8 kernel vs plain PyTorch: " + "; ".join(
+        f"[{k}, 65536] {v[0]:.3f} ms vs {v[1]:.1f} ms"
+        for k, v in b_ms.items()))
+
+    # ---- 5. list-8 kernel vs the bit-by-bit oracle -----------------------
+    with open(os.path.join(ROOT, "bench", "ab_scl_oracle_64800.json")) as f:
+        oracle = json.load(f)
+    agree, rows = 0, []
+    for sigma in ORACLE_SIGMAS:
+        x, cws = oracle_llrs(code, sigma, ORACLE_FRAMES, dev)
+        got = recovered(scl_decode(x, plan, LIST_SIZE)[0], cws).cpu()
+        want = torch.tensor([oracle[f"{sigma}:{i}"]
+                             for i in range(ORACLE_FRAMES)])
+        agree += int((got == want).sum())
+        rows.append(f"{sigma}: {int(got.sum())} vs {int(want.sum())}")
+    n_oracle = len(ORACLE_SIGMAS) * ORACLE_FRAMES
+    print(f"oracle: list-8 kernel recovery agrees with "
+          f"ab_scl_oracle_64800.json on {agree}/{n_oracle} frames "
+          f"(kernel vs oracle recoveries per sigma: {'; '.join(rows)})")
+    check(agree == n_oracle, "list kernel disagrees with the oracle")
+
+    # ---- 6. the main path ----------------------------------------------
     cfg = make_config(8000, 6, 2000)
     enc = Encoder(cfg, device=dev)
     rng = np.random.default_rng(0)
@@ -175,8 +315,9 @@ def main() -> int:
           f"{rec_sets[0].shape[1]} samples in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    pipe = BatchPipeline(8000, 6, list_size=1, device=dev)
-    check(pipe.sync_stride == 8, "stride-8 coarse sync expected")
+    pipe = AdaptivePipeline(8000, 6, list_size=LIST_SIZE,
+                            fallback_batch=FALLBACK_BATCH, device=dev)
+    check(pipe.sc.sync_stride == 8, "stride-8 coarse sync expected")
 
     def verify(host, payloads):
         check(host["ok"].all(), f"{int((~host['ok']).sum())} frames "
@@ -187,16 +328,28 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     sc_decode.launches = 0
-    hosts = [pipe.fetch(pipe.decode_batch(rec_sets[0]))]   # warm-up
+    scl_decode.launches = 0
+    hosts = [pipe.decode_batch(rec_sets[0])]                # warm-up
+    fallbacks = pipe.last_fallbacks
     rates = []
     for rep in range(REPEATS):
         t0 = time.perf_counter()
+        pending = None
         for i in range(1, SETS):
-            host = pipe.fetch(pipe.decode_batch(rec_sets[i]))
-            if rep == 0:
-                hosts.append(host)
+            handle = pipe.decode_batch_async(rec_sets[i])
+            if pending is not None:
+                host = pipe.resolve(pending)
+                fallbacks += pipe.last_fallbacks
+                if rep == 0:
+                    hosts.append(host)
+            pending = handle
+        host = pipe.resolve(pending)
+        fallbacks += pipe.last_fallbacks
+        if rep == 0:
+            hosts.append(host)
         rates.append(BATCH * (SETS - 1) / (time.perf_counter() - t0))
     launches = sc_decode.launches
+    serve_scl_launches = scl_decode.launches
     for host, payloads in zip(hosts, payload_sets):
         verify(host, payloads)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -204,25 +357,24 @@ def main() -> int:
     want = 1 + REPEATS * (SETS - 1)
     check(launches == want, f"SC kernel launched {launches} times, "
           f"want {want}")
+    check(fallbacks == 0 and serve_scl_launches == 0,
+          f"{fallbacks} clean frames escalated")
     print(f"serve: median {fps:.1f} frames/s over {REPEATS} runs of "
-          f"{SETS - 1} disjoint batches of {BATCH} (runs: "
+          f"{SETS - 1} disjoint batches of {BATCH}, pipelined (runs: "
           f"{', '.join(f'{r:.1f}' for r in rates)}); every frame ok and "
-          f"byte-exact; SC kernel launches {launches}; peak device "
-          f"memory {peak_mb:.0f} MiB")
+          f"byte-exact; fallbacks {fallbacks}; SC kernel launches "
+          f"{launches}; peak device memory {peak_mb:.0f} MiB")
 
     # stage split at the main path's shapes (after the counted run)
+    sc = pipe.sc
     recs = rec_sets[1]
-    front_ms = cuda_ms(lambda: pipe.demod(recs), 3)
-    front = pipe.demod(recs)
+    front_ms = cuda_ms(lambda: sc.demod(recs), 3)
+    front = sc.demod(recs)
     llrs = front["llrs"]
-    select_ms = cuda_ms(lambda: pipe._fec_select(front), 3)
-    plain_a = cuda_ms(lambda: sc_decode_reference(llrs, plan.sched), 1)
-    sc_decode(llrs, plan)
-    kernel_ms = cuda_ms(lambda: sc_decode(llrs, plan), 10)
-    kernel_b = cuda_ms(lambda: sc_decode(llrs, plan), 10)
-    plain_b = cuda_ms(lambda: sc_decode_reference(llrs, plan.sched), 1)
-    kernel_ms = (kernel_ms + kernel_b) / 2
-    plain_ms = (plain_a + plain_b) / 2
+    select_ms = cuda_ms(lambda: sc._fec_select(front), 3)
+    kernel_ms, plain_ms = kernel_vs_plain_ms(
+        lambda: sc_decode(llrs, plan),
+        lambda: sc_decode_reference(llrs, plan.sched), 10)
     cw_main, pm_main = sc_decode(llrs, plan)
     cw_plain, pm_plain = sc_decode_reference(llrs, plan.sched)
     check(torch.equal(cw_main, cw_plain), "main-path codewords differ")
@@ -233,26 +385,104 @@ def main() -> int:
           f"SC + CRC select {select_ms:.2f} ms; SC kernel {kernel_ms:.3f} "
           f"ms vs plain PyTorch {plain_ms:.1f} ms")
 
-    # ---- 5. golden recording on the card --------------------------------
+    # ---- 7. escalation at wire size ---------------------------------------
+    nrng = np.random.default_rng(ESC_SEED)
+    shape = (ESC_FRAMES, rec_sets[0].shape[1])
+    noise = torch.from_numpy(
+        (nrng.standard_normal(shape) + 1j * nrng.standard_normal(shape))
+        .astype(np.complex64)).to(dev)
+    noisy = rec_sets[0][:ESC_FRAMES] + ESC_SIGMA * noise
+    sc_decode.launches = 0
+    scl_decode.launches = 0
+    host = pipe.decode_batch(noisy)
+    torch.cuda.synchronize()
+    esc_launches = (sc_decode.launches, scl_decode.launches)
+    escalated = pipe.last_fallbacks
+    ref_pipe = BatchPipeline(8000, 6, list_size=LIST_SIZE, device=dev,
+                             state=pipe.sc.state)
+    ref = ref_pipe.fetch(ref_pipe.decode_batch(noisy))
+    sc_ok = sc.fetch(sc.decode_batch(noisy))["ok"]
+    payloads = payload_sets[0]
+    exact = [pipe.payload_bytes(host, i) == payloads[i]
+             for i in range(ESC_FRAMES)]
+    saved = sum(exact[i] for i in np.flatnonzero(~sc_ok))
+    print(f"escalation: {ESC_FRAMES} recordings with complex AWGN sigma "
+          f"{ESC_SIGMA}: SC fails {escalated}, escalated to list-8 in "
+          f"{esc_launches[1]} launches; {sum(exact)} byte-exact in all, "
+          f"{saved} of them lost by SC; adaptive == BatchPipeline("
+          f"list_size=8) on every key: "
+          f"{all(np.array_equal(host[k], ref[k]) for k in ref)}")
+    check(0.1 * ESC_FRAMES <= escalated <= 0.9 * ESC_FRAMES,
+          f"SC failed on {escalated} of {ESC_FRAMES}: not between 10 % "
+          "and 90 %")
+    check(set(host) == set(ref), "adaptive result keys differ")
+    for key in ref:
+        check(np.array_equal(host[key], ref[key]),
+              f"adaptive {key} differs from BatchPipeline(list_size=8)")
+    check(esc_launches == (1, -(-escalated // FALLBACK_BATCH)),
+          f"escalation launches {esc_launches}")
+    check(saved > 0, "the list decoder recovered no frame that SC lost")
+
+    # the pipelined pair on an escalating batch: the noisy batch is
+    # resolved (and escalated) while a clean one is in flight
+    clean = rec_sets[0][:ESC_FRAMES].contiguous()
+    h_noisy = pipe.decode_batch_async(noisy)
+    h_clean = pipe.decode_batch_async(clean)
+    got = {"noisy": pipe.resolve(h_noisy)}
+    check(pipe.last_fallbacks == escalated, "async escalation count")
+    got["clean"] = pipe.resolve(h_clean)
+    check(pipe.last_fallbacks == 0, "clean batch escalated")
+    for name, x in (("noisy", noisy), ("clean", clean)):
+        want_res = pipe.decode_batch(x)
+        for key in want_res:
+            check(np.array_equal(got[name][key], want_res[key]),
+                  f"async {name} {key} differs from decode_batch")
+
+    # escalation cost: decode_batch of the same 64 recordings, clean and
+    # noisy, median of 5 each
+    esc_ms = {}
+    for name, x in (("clean", clean), ("noisy", noisy)):
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.decode_batch(x)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        esc_ms[name] = float(np.median(walls))
+    print(f"escalation cost: {ESC_FRAMES} recordings {esc_ms['noisy']:.2f}"
+          f" ms at sigma {ESC_SIGMA} ({escalated} fallbacks) vs "
+          f"{esc_ms['clean']:.2f} ms clean (decode_batch, median of 5); "
+          "async dispatch of the noisy batch then a clean one, resolved "
+          "in order: both equal decode_batch on every key")
+
+    # ---- 8. golden recording on the card --------------------------------
     want = np.load(os.path.join(ROOT, "tests", "data",
                                 "waveform_pin_payload_seed.npy")).tobytes()
-    host = pipe.fetch(pipe.decode_batch(read_golden()[None]))
+    host = pipe.decode_batch(read_golden()[None])
     check(bool(host["ok"][0]) and pipe.payload_bytes(host, 0) == want,
           "golden recording did not decode byte-exact")
     print(f"golden: golden_mode6_galois.wav decodes byte-exact, p0 "
           f"{int(host['p0'][0])}, cfo "
           f"{float(host['cfo_rad'][0]) * 8000 / (2 * np.pi):.3f} Hz")
 
-    print(json.dumps({"kernels": [{
-        "name": "sc_decode", "route": "cuda",
-        "source": "modem_tpu_torch/csrc/sc_decode.cu",
-        "replaces": "modem_tpu/kernels/scl_pallas.py:1732",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}],
+    print(json.dumps({"kernels": [
+        {"name": "sc_decode", "route": "cuda",
+         "source": "modem_tpu_torch/csrc/sc_decode.cu",
+         "replaces": "modem_tpu/kernels/scl_pallas.py:1732",
+         "launches": launches, "max_abs_err": max_abs_err,
+         "ms": kernel_ms, "plain_ms": plain_ms},
+        {"name": "scl_decode", "route": "cuda",
+         "source": "modem_tpu_torch/csrc/scl_decode.cu",
+         "replaces": "modem_tpu/kernels/scl_pallas.py:1732",
+         "launches": esc_launches[1], "max_abs_err": scl_err,
+         "ms": b_ms[FALLBACK_BATCH][0],
+         "plain_ms": b_ms[FALLBACK_BATCH][1]}],
         "card": card, "build_s": build_s, "frames_per_s": fps,
-        "frames_per_s_runs": rates,
-        "front_ms": front_ms, "select_ms": select_ms,
-        "peak_mib": peak_mb}))
+        "frames_per_s_runs": rates, "front_ms": front_ms,
+        "select_ms": select_ms, "peak_mib": peak_mb,
+        "scl_parity_ms": b_ms[8][0], "scl_parity_plain_ms": b_ms[8][1],
+        "oracle_agree": agree, "escalated": escalated,
+        "escalation_recovered": saved, "escalation_ms": esc_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

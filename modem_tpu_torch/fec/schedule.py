@@ -6,7 +6,9 @@ opcode constants), kept equal to it by the tests.  The successive-
 cancellation tree of one frozen mask is pruned into Fast-SSC constituent
 nodes (RATE0 / REP / RATE1 / SPC leaves; Sarkis et al.) and linearised
 into a static table of fixed-width (<= CHUNK) micro-ops.  The table is
-the instruction stream of the SC kernel (kernels/sc_decode.py).
+the instruction stream of the SC kernel (kernels/sc_decode.py) and of
+the exact list decoder (kernels/scl_decode.py), which runs the same
+SPC-leaf table.
 
 Row layout (int32, 14 columns): opcode, depth, LLR source offsets (SRC,
 SRC2), LLR destination (DST; for COMBINE the beta offset of the right
@@ -24,6 +26,16 @@ import numpy as np
 
 CHUNK = 512      # widest op (columns)
 T_RATE1 = 4      # fork rounds per RATE1 node of the fast list mode
+
+# The exact list decoder's one-shot enumeration at RATE1 / SPC leaves:
+# every subset of the 7 least-reliable positions as a 0/1 matrix
+# [7, 128] (pattern p flips position j iff bit j of p is set), and each
+# pattern's popcount parity.  7 positions suffice for a list of 8: the
+# k smallest subset sums of non-negative values use only the k-1
+# smallest elements.
+PAT7 = ((np.arange(128)[None, :] >> np.arange(7)[:, None]) & 1
+        ).astype(np.float32)
+SPAR7 = (PAT7.sum(axis=0) % 2).astype(np.float32)
 
 OP_F, OP_G, OP_COMBINE, OP_RATE0, OP_REP, OP_RATE1, OP_SPC = range(7)
 

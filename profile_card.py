@@ -1,0 +1,262 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's serving decode on one GPU.
+
+Two modes, one process each (run from the root of a checkout):
+
+  python3 profile_card.py [--out FILE]
+      kernel B (list-8) ms at 1, 16, 64, 132 and 264 frames; the
+      pipelined AdaptivePipeline(8000, 6) loop of chip_smoke.py at batch
+      512: frames/s over 10 runs with the host ms spent in
+      decode_batch_async (dispatch) and in resolve, then one run under
+      torch.profiler: its wall, its device time (kernel events) and the
+      device idle share of that one run, and the largest kernels.
+
+  python3 profile_card.py --rows [--out FILE]
+      per-opcode clock profile of both decode kernels: instrumented
+      copies of csrc/sc_decode.cu and csrc/scl_decode.cu, built under
+      build/profile_card/, in which thread 0 of block 0 adds the
+      clock64() cycles of each schedule row to its opcode; kernel A at
+      1 and 512 frames, kernel B at 1 and 16, sigma 0.70 wire-size
+      frames.  The instrumentation adds one clock read and a branch to
+      each row.
+
+Prints the card's name and power limit and a JSON summary, also
+written to FILE (default build/profile_card.json).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from modem_tpu_torch.kernels import _build  # noqa: E402
+
+OPS = "F G COMBINE RATE0 REP RATE1 SPC".split()
+B_FRAMES = (1, 16, 64, 132, 264)
+
+# text edits that instrument a decode kernel's row loop (--rows)
+DECL = "\n__device__ unsigned long long g_prof[16];\n"
+HEAD = "  for (int i = 0; i < n_ops; ++i) {\n"
+CLOSE = "  }\n\n  uint8_t* cw = cw_out"
+PROF = ("    if (t == 0 && blockIdx.x == 0) { g_prof[op] += clock64() - t_row;"
+        " g_prof[8 + op] += 1; }\n")
+TAIL = """
+extern "C" int prof_read(void* out) {
+  cudaDeviceSynchronize();
+  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
+}
+extern "C" int prof_reset() {
+  unsigned long long z[16] = {0};
+  return (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
+}
+"""
+
+
+def instrument(name: str, out_dir: pathlib.Path) -> None:
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    for part in ("namespace {\n", HEAD, CLOSE):
+        if src.count(part) != 1:
+            raise RuntimeError(f"csrc/{name}.cu: cannot place the "
+                               f"instrumentation at {part!r}")
+    src = src.replace("namespace {\n", "namespace {\n" + DECL)
+    src = src.replace(HEAD, HEAD + "    const long long t_row = clock64();\n")
+    src = src.replace(CLOSE, PROF + CLOSE)
+    (out_dir / f"{name}.cu").write_text(src + TAIL)
+
+
+def wire_llrs(frames: int, dev):
+    from modem_tpu_torch.fec.polar import PolarCode
+    from modem_tpu_torch.kernels.sc_decode import ScPlan
+    code = PolarCode(64800, 43072, 16)
+    llrs, _cw = cs.parity_llrs(code, frames, 0.70)
+    return ScPlan.from_frozen(code.frozen), llrs.to(dev)
+
+
+def row_profile(dev) -> dict:
+    """Per-opcode cycles of block 0 for kernels A and B."""
+    prof_dir = ROOT / "build" / "profile_card"
+    (prof_dir / "csrc").mkdir(parents=True, exist_ok=True)
+    for name in ("sc_decode", "scl_decode"):
+        instrument(name, prof_dir / "csrc")
+    _build.CSRC = prof_dir / "csrc"
+    _build.BUILD_DIR = prof_dir / "lib"
+    from modem_tpu_torch.kernels import sc_decode as sc_mod
+    from modem_tpu_torch.kernels import scl_decode as scl_mod
+    cs.build_all({"sc_decode": sc_mod._library,
+                  "scl_decode": scl_mod._library})
+    plan, llrs = wire_llrs(512, dev)
+    res = {}
+    for kname, lib, run, sizes in (
+            ("A", sc_mod._library(), lambda x: sc_mod.sc_decode(x, plan),
+             (1, 512)),
+            ("B", scl_mod._library(),
+             lambda x: scl_mod.scl_decode(x, plan, 8), (1, 16))):
+        lib.prof_read.argtypes = [ctypes.c_void_p]
+        for frames in sizes:
+            x = llrs[:frames].contiguous()
+            run(x)
+            ms = cs.cuda_ms(lambda: run(x), 3)
+            if lib.prof_reset():
+                raise RuntimeError("prof_reset failed")
+            run(x)
+            buf = (ctypes.c_ulonglong * 16)()
+            if lib.prof_read(ctypes.addressof(buf)):
+                raise RuntimeError("prof_read failed")
+            cyc, cnt = list(buf[:7]), list(buf[8:15])
+            total = sum(cyc)
+            ghz = total / (ms * 1e6)
+            rows = {op: {"rows": cnt[i], "share": cyc[i] / total,
+                         "cycles_per_row": cyc[i] / max(cnt[i], 1),
+                         "us_per_row": cyc[i] / max(cnt[i], 1) / ghz / 1e3}
+                    for i, op in enumerate(OPS)}
+            res[f"{kname}_{frames}"] = {"ms": ms, "cycles": total,
+                                        "clock_ghz_implied": ghz,
+                                        "ops": rows}
+            print(f"kernel {kname}, {frames} frames: {ms:.3f} ms, {total} "
+                  f"cycles of block 0 ({ghz:.3f} GHz implied)")
+            for op, r in rows.items():
+                print(f"  {op:8s} rows {r['rows']:5d}  share "
+                      f"{r['share'] * 100:5.1f} %  {r['cycles_per_row']:8.0f}"
+                      f" cycles a row  {r['us_per_row']:.3f} us a row")
+    return res
+
+
+def serve_profile(dev) -> dict:
+    """Kernel B's scaling, then the pipelined serve loop: host split over
+    10 runs and one run under the profiler."""
+    from modem_tpu_torch import bits as B
+    from modem_tpu_torch.encoder import Encoder
+    from modem_tpu_torch.kernels import sc_decode as sc_mod
+    from modem_tpu_torch.kernels import scl_decode as scl_mod
+    from modem_tpu_torch.numerology import make_config
+    from modem_tpu_torch.pipeline import AdaptivePipeline
+    from torch.profiler import ProfilerActivity, profile
+
+    cs.build_all({"sc_decode": sc_mod._library,
+                  "scl_decode": scl_mod._library})
+    out = {}
+    plan, llrs = wire_llrs(max(B_FRAMES), dev)
+    kb = {}
+    for frames in B_FRAMES:
+        x = llrs[:frames].contiguous()
+        scl_mod.scl_decode(x, plan, 8)
+        kb[frames] = cs.cuda_ms(lambda: scl_mod.scl_decode(x, plan, 8), 3)
+        print(f"kernel B, {frames} frames: {kb[frames]:.3f} ms", flush=True)
+    out["kernel_b_ms_by_frames"] = kb
+
+    cfg = make_config(8000, 6, 2000)
+    enc = Encoder(cfg, device=dev)
+    rng = np.random.default_rng(0)
+    call = B.base37_encode("N0CALL")
+    pad = torch.zeros(cs.BATCH, cfg.rate // 4, dtype=torch.complex64,
+                      device=dev)
+    recs = []
+    for _ in range(cs.SETS):
+        payloads = [rng.integers(0, 256, cfg.mode.data_bytes,
+                                 dtype=np.uint8).tobytes()
+                    for _ in range(cs.BATCH)]
+        waves, _ = enc.encode_batch(payloads, call)
+        recs.append(torch.cat([pad, waves, pad], dim=1))
+    pipe = AdaptivePipeline(8000, 6, device=dev)
+    pipe.decode_batch(recs[0])
+    timing = {"dispatch": [], "resolve": []}
+
+    def loop():
+        pending = None
+        for i in range(1, cs.SETS):
+            t0 = time.perf_counter()
+            handle = pipe.decode_batch_async(recs[i])
+            timing["dispatch"].append(time.perf_counter() - t0)
+            if pending is not None:
+                t0 = time.perf_counter()
+                pipe.resolve(pending)
+                timing["resolve"].append(time.perf_counter() - t0)
+            pending = handle
+        t0 = time.perf_counter()
+        pipe.resolve(pending)
+        timing["resolve"].append(time.perf_counter() - t0)
+
+    batches = cs.SETS - 1
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        loop()
+        walls.append((time.perf_counter() - t0) / batches)
+    out["serve_ms_per_batch"] = sorted(w * 1e3 for w in walls)
+    out["serve_fps_median"] = cs.BATCH / statistics.median(walls)
+    out["dispatch_ms_median"] = statistics.median(timing["dispatch"]) * 1e3
+    out["resolve_ms_median"] = statistics.median(timing["resolve"]) * 1e3
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            kernels.append((us, e.key, e.count))
+    kernels.sort(reverse=True)
+    device_s = sum(k[0] for k in kernels) / 1e6
+    out["profiled_wall_ms_per_batch"] = wall * 1e3 / batches
+    out["profiled_device_ms_per_batch"] = device_s * 1e3 / batches
+    out["profiled_idle_share"] = 1 - device_s / wall
+    out["top_kernels_ms_per_batch"] = [
+        (us / 1e3 / batches, key[:90], count)
+        for us, key, count in kernels[:14]]
+    print(f"serve: median {out['serve_fps_median']:.1f} frames/s; host "
+          f"dispatch {out['dispatch_ms_median']:.2f} ms, resolve "
+          f"{out['resolve_ms_median']:.2f} ms (medians)")
+    print(f"profiled run: wall {out['profiled_wall_ms_per_batch']:.2f} ms, "
+          f"device {out['profiled_device_ms_per_batch']:.2f} ms a batch; "
+          f"idle share {out['profiled_idle_share'] * 100:.1f} %")
+    for row in out["top_kernels_ms_per_batch"]:
+        print(f"  {row[0]:8.3f} ms  x{row[2]:<5d} {row[1]}")
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", action="store_true",
+                    help="per-opcode clock profile of both kernels")
+    ap.add_argument("--out", default=str(ROOT / "build" /
+                                         "profile_card.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_card: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = cs.card_line()
+    print(card, flush=True)
+    res = {"card": card, **(row_profile(dev) if args.rows
+                            else serve_profile(dev))}
+    out = pathlib.Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(res, indent=1))
+    print(json.dumps({k: v for k, v in res.items()
+                      if not isinstance(v, (dict, list))}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

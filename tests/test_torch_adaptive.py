@@ -1,0 +1,173 @@
+"""The port's AdaptivePipeline and BatchPipeline(list_size=4) against the
+JAX package's, on the toy configuration (mirrors tests/test_adaptive.py).
+
+Same numpy recordings (JAX toy encoder plus seeded noise) into both.
+Exact: ok, bits, p0, flips, sync_gate and the fallback count.  cfo_rad
+within 1e-5 rad/sample and snr within 1e-3 relative (the front ends'
+FFTs round differently).  Port against port: every key exactly.
+"""
+
+import numpy as np
+import pytest
+
+from modem_tpu.parallel import toy_config as jax_toy_config
+from modem_tpu.parallel import toy_recordings
+from modem_tpu.pipeline import AdaptivePipeline as JaxAdaptivePipeline
+from modem_tpu.pipeline import BatchPipeline as JaxBatchPipeline
+from modem_tpu_torch.numerology import toy_config
+from modem_tpu_torch.pipeline import (AdaptivePipeline, BatchPipeline,
+                                      cached_adaptive_pipeline,
+                                      cached_pipeline)
+
+EXACT_KEYS = ("ok", "bits", "p0", "flips", "sync_gate")
+
+
+def _toy(cls, **kw):
+    cfg = toy_config()
+    return cls(rate=cfg.rate, oper_mode=0, list_size=4, mode_spec=cfg.mode,
+               symbol_len_override=cfg.symbol_len, **kw)
+
+
+def _jax_toy(cls):
+    cfg = jax_toy_config()
+    return cls(rate=cfg.rate, oper_mode=0, list_size=4, mode_spec=cfg.mode,
+               symbol_len_override=cfg.symbol_len)
+
+
+def assert_matches_jax(got: dict, want: dict):
+    assert set(got) == set(want)
+    for key in EXACT_KEYS:
+        assert np.array_equal(got[key], np.asarray(want[key])), key
+    assert np.abs(got["cfo_rad"] - np.asarray(want["cfo_rad"])).max() <= 1e-5
+    assert np.allclose(got["snr"], np.asarray(want["snr"]), rtol=1e-3)
+
+
+def assert_equal(got: dict, want: dict):
+    assert set(got) == set(want)
+    for key in got:
+        assert np.array_equal(got[key], want[key]), key
+
+
+@pytest.fixture(scope="module")
+def port():
+    return _toy(AdaptivePipeline)
+
+
+@pytest.fixture(scope="module")
+def port_scl():
+    return _toy(BatchPipeline)
+
+
+@pytest.fixture(scope="module")
+def jax_pipes():
+    return _jax_toy(JaxAdaptivePipeline), _jax_toy(JaxBatchPipeline)
+
+
+@pytest.fixture(scope="module")
+def clean():
+    recs, payloads = toy_recordings(4, seed=3)
+    return np.asarray(recs), payloads
+
+
+@pytest.fixture(scope="module")
+def noisy():
+    """The noise-0.3 batch of tests/test_torch_pipeline.py, whose LLR
+    signs the front-end test there pins equal to JAX's (so ``flips``,
+    a count of sign disagreements, can be compared exactly)."""
+    recs, payloads = toy_recordings(8, seed=3)
+    recs = np.asarray(recs)
+    rng = np.random.default_rng(42)
+    for sigma in (0.05, 0.3):
+        x = recs + sigma * rng.standard_normal(recs.shape).astype(np.float32)
+    return x, payloads
+
+
+@pytest.fixture(scope="module")
+def noisy_results(port, jax_pipes, noisy):
+    """(port adaptive, its fallbacks, JAX adaptive, its fallbacks) on the
+    noisy batch."""
+    jax_adaptive, _ = jax_pipes
+    x, _ = noisy
+    got = port.decode_batch(x)
+    n_port = port.last_fallbacks
+    want = jax_adaptive.decode_batch(x)
+    return got, n_port, want, jax_adaptive.last_fallbacks
+
+
+def test_clean_batch(port, jax_pipes, clean):
+    """Clean frames all pass SC: zero escalations, exact payloads, no
+    flips, and the JAX result on every key."""
+    x, payloads = clean
+    res = port.decode_batch(x)
+    assert res["ok"].all()
+    assert port.last_fallbacks == 0
+    assert all(port.payload_bytes(res, i) == p
+               for i, p in enumerate(payloads))
+    assert res["flips"].max() == 0
+    assert_matches_jax(res, jax_pipes[0].decode_batch(x))
+
+
+def test_noisy_batch_matches_jax(port, noisy_results, noisy):
+    """At noise 0.3 SC fails on some frames; the port escalates the same
+    frames as JAX and agrees on every key, and the list decoder recovers
+    at least one frame that SC lost."""
+    got, n_port, want, n_jax = noisy_results
+    assert n_port == n_jax > 0
+    assert_matches_jax(got, want)
+    _, payloads = noisy
+    recovered = [i for i in np.flatnonzero(got["ok"])
+                 if port.payload_bytes(got, i) == payloads[i]]
+    assert len(recovered) >= 1
+
+
+def test_noisy_batch_equals_pure_list_decode(noisy_results, port_scl,
+                                             noisy):
+    """Escalated frames return the list decoder's result verbatim: the
+    adaptive output equals the port's BatchPipeline(list_size=4) on every
+    key."""
+    got = noisy_results[0]
+    x, _ = noisy
+    assert_equal(got, port_scl.fetch(port_scl.decode_batch(x)))
+
+
+def test_batch_pipeline_list4_matches_jax(port_scl, jax_pipes, noisy):
+    _, jax_scl = jax_pipes
+    x, _ = noisy
+    assert_matches_jax(port_scl.fetch(port_scl.decode_batch(x)),
+                       jax_scl.fetch(jax_scl.decode_batch(x)))
+
+
+def test_fallback_batch_pads_groups(port, noisy_results, noisy):
+    """A fallback batch of 2 with more failures than that: several
+    padded groups, the same result as one group of 16."""
+    got = noisy_results[0]
+    assert noisy_results[1] > 2
+    small = _toy(AdaptivePipeline, fallback_batch=2,
+                 state=port.sc.state)
+    res = small.decode_batch(noisy[0])
+    assert small.last_fallbacks == noisy_results[1]
+    assert_equal(res, got)
+
+
+def test_async_handles_resolve_in_order(port, clean, noisy, noisy_results):
+    """Two handles dispatched before either resolves give what
+    decode_batch gives, batch by batch."""
+    h1 = port.decode_batch_async(clean[0])
+    h2 = port.decode_batch_async(noisy[0])
+    first = port.resolve(h1)
+    assert port.last_fallbacks == 0
+    second = port.resolve(h2)
+    assert port.last_fallbacks == noisy_results[1]
+    assert_equal(first, port.decode_batch(clean[0]))
+    assert_equal(second, noisy_results[0])
+
+
+def test_cached_factories():
+    a = cached_adaptive_pipeline(8000, 6)
+    assert a is cached_adaptive_pipeline(8000, 6)
+    assert (a.sc.list_size, a.scl.list_size, a.fallback_batch) == (1, 8, 16)
+    assert a.scl.state is a.sc.state
+    p = cached_pipeline(8000, 6, 4)
+    assert p is cached_pipeline(8000, 6, 4) and p.list_size == 4
+    assert cached_pipeline(8000, 6).list_size == 8
+

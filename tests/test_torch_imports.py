@@ -26,6 +26,7 @@ def test_every_module_is_listed():
     mods = all_modules()
     for name in ("modem_tpu_torch.pipeline", "modem_tpu_torch.state",
                  "modem_tpu_torch.kernels.sc_decode",
+                 "modem_tpu_torch.kernels.scl_decode",
                  "modem_tpu_torch.fec.schedule"):
         assert name in mods
 
@@ -51,4 +52,5 @@ def test_no_jax_import():
 
 
 def test_csrc_is_packaged():
-    assert (ROOT / "csrc" / "sc_decode.cu").exists()
+    for name in ("sc_decode", "scl_decode"):
+        assert (ROOT / "csrc" / f"{name}.cu").exists()

@@ -26,6 +26,7 @@ EXACT_KEYS = ("ok", "bits", "p0", "flips", "sync_gate", "multiframe")
 
 def toy_port(**kw):
     cfg = toy_config()
+    kw.setdefault("list_size", 1)
     return BatchPipeline(rate=cfg.rate, oper_mode=0, mode_spec=cfg.mode,
                          symbol_len_override=cfg.symbol_len, **kw)
 
@@ -69,6 +70,19 @@ def test_matches_jax_pipeline(results, sigma):
     assert np.abs(got["cfo_rad"] - want["cfo_rad"]).max() <= 1e-5
     if sigma > 0:
         assert np.allclose(got["snr"], want["snr"], rtol=1e-3)
+
+
+@pytest.mark.parametrize("sigma", [0.0, 0.05, 0.3])
+def test_card_test_batches_decode_as_jax(results, sigma):
+    """tests/test_torch_card.py (no JAX) makes its toy batches with the
+    port's encoder: the port decodes each as the JAX package decodes
+    its own recordings."""
+    from test_torch_card import toy_batches
+    got = {k: v.numpy()
+           for k, v in toy_port().decode_batch(toy_batches()[sigma]).items()}
+    want = results[sigma][1]
+    for key in EXACT_KEYS:
+        assert np.array_equal(got[key], want[key].astype(got[key].dtype)), key
 
 
 @pytest.mark.parametrize("sigma", [0.05, 0.3])
@@ -156,7 +170,9 @@ def test_strided_sync_matches_full_rate(batches):
 
 def test_options_that_wait_raise():
     with pytest.raises(NotImplementedError):
-        toy_port(list_size=8)
+        toy_port(list_size=8, scl_exact=False)
+    with pytest.raises(NotImplementedError):
+        toy_port(list_size=3)
     with pytest.raises(NotImplementedError):
         toy_port(mls_convention="fibonacci")
     with pytest.raises(ValueError):
@@ -184,7 +200,7 @@ def test_golden_recording_decodes():
     wire-size pipeline on the CPU (plain SC path, no JAX)."""
     payload = np.load(os.path.join(
         _DATA, "waveform_pin_payload_seed.npy")).tobytes()
-    pipe = BatchPipeline(8000, 6)
+    pipe = BatchPipeline(8000, 6, list_size=1)
     res = pipe.fetch(pipe.decode_batch(read_golden()[None]))
     assert res["ok"][0] and res["sync_gate"][0]
     assert res["flips"][0] == 0
@@ -209,7 +225,7 @@ def test_wire_demod_matches_jax():
     split = np.stack([recs.real, recs.imag], axis=-1).astype(np.float32)
     ref = JaxBatchPipeline(8000, 6, list_size=1)
     want = jax.jit(jax.vmap(ref._demod_one))(jnp.asarray(split))
-    got = BatchPipeline(8000, 6).demod(recs)
+    got = BatchPipeline(8000, 6, list_size=1).demod(recs)
     for key in ("p0", "sync_gate", "multiframe"):
         assert np.array_equal(got[key].numpy(), np.asarray(want[key])), key
     llr_w = np.asarray(want["llrs"])
@@ -218,26 +234,3 @@ def test_wire_demod_matches_jax():
     assert np.allclose(llr_g, llr_w, rtol=1e-3, atol=1e-2 * np.abs(
         llr_w[llr_w < 9000]).max())
 
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the SC kernel runs only on the card")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_card_decode_matches_cpu(cuda_device, batches):
-    """The whole toy pipeline on the card, through the CUDA SC kernel,
-    against the CPU run of the same batch."""
-    from modem_tpu_torch.kernels.sc_decode import sc_decode
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cpu = toy_port()
-    card = toy_port(device=cuda_device)
-    x = batches[0][0.3]
-    before = sc_decode.launches
-    got = card.fetch(card.decode_batch(x))
-    assert sc_decode.launches == before + 1
-    want = cpu.fetch(cpu.decode_batch(x))
-    for key in ("ok", "bits", "p0", "flips", "sync_gate"):
-        assert np.array_equal(got[key], want[key]), key

@@ -83,10 +83,12 @@ def test_pipeline_from_jax_state_matches(toy):
     as the JAX pipeline and as the port built from its own arrays."""
     jpipe, arrays = toy
     cfg = toy_config()
-    port = BatchPipeline(rate=cfg.rate, oper_mode=0, mode_spec=cfg.mode,
+    port = BatchPipeline(rate=cfg.rate, oper_mode=0, list_size=1,
+                         mode_spec=cfg.mode,
                          symbol_len_override=cfg.symbol_len,
                          state=state_from_numpy(**arrays))
-    own = BatchPipeline(rate=cfg.rate, oper_mode=0, mode_spec=cfg.mode,
+    own = BatchPipeline(rate=cfg.rate, oper_mode=0, list_size=1,
+                        mode_spec=cfg.mode,
                         symbol_len_override=cfg.symbol_len)
     recs, payloads = toy_recordings(4, seed=17)
     rng = np.random.default_rng(18)

@@ -165,3 +165,16 @@ def base37_encode(text: str) -> int:
         elif c != " ":
             return -1
     return acc
+
+
+_B37 = " 0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+
+
+def base37_decode(value: int, length: int = 9) -> str:
+    """base37 integer -> callsign of ``length`` characters, space-padded
+    on the left (decode.cc:444 prints it with the padding stripped)."""
+    chars = []
+    for _ in range(length):
+        chars.append(_B37[value % 37])
+        value //= 37
+    return "".join(reversed(chars))

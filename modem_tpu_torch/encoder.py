@@ -88,7 +88,7 @@ class Encoder:
     :func:`state.build_state`).
     """
 
-    def __init__(self, cfg: ModemConfig, device="cpu", state=None):
+    def __init__(self, cfg: ModemConfig, device="cuda", state=None):
         cfg.validate()
         if cfg.mls_convention == "auto":
             raise ValueError("mls_convention='auto' is receive-only; "

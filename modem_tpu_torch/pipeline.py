@@ -9,16 +9,18 @@ a batch of recordings with a known (rate, mode), one frame each, through
   3. demod: payload windows, CFO mixdown, FFT, differential demod,
      Theil-Sen derotation, soft demap, lengthening to the mother code;
   4. polar decode: plain SC with the CUDA kernel kernels/sc_decode.py at
-     ``list_size=1``, the exact list decoder kernels/scl_decode.py at
-     ``list_size`` 2, 4 or 8;
+     ``list_size=1``, the list decoder kernels/scl_decode.py at
+     ``list_size`` 2, 4 or 8 (exact, or Fast-SSC-List with
+     ``scl_exact=False``);
   5. CRC-32 check over each path and the lowest-metric passing path
      (decode.cc:530-555).
 
 :class:`AdaptivePipeline` is the serving path: every frame through SC,
-and only the frames whose CRC fails again through the exact list
-decoder, so its results equal ``BatchPipeline(list_size=8)``'s on any
-batch.  Tensors stay on ``device`` from the recordings to the packed
-result.
+and only the frames whose CRC fails again through the list decoder, so
+its results equal ``BatchPipeline(list_size=8)``'s (with the same
+``scl_exact``) on any batch.  Tensors stay on ``device`` (the card by
+default; ``device="cpu"`` runs the kernels' plain versions) from the
+recordings to the packed result.
 """
 
 from __future__ import annotations
@@ -58,9 +60,10 @@ def as_recordings(recordings, device) -> torch.Tensor:
 class BatchPipeline:
     """Batched decoder for one (rate, mode) on one device.
 
-    list_size: 1 decodes with plain SC, 2, 4 or 8 with the exact list
-    decoder (``scl_exact=True``, the one-shot RATE1/SPC enumeration; the
-    Fast-SSC-List approximation ``scl_exact=False`` is not ported yet).
+    list_size: 1 decodes with plain SC, 2, 4 or 8 with the list decoder:
+    ``scl_exact=True`` the exact one (the one-shot RATE1/SPC
+    enumeration, kernel B), ``scl_exact=False`` the Fast-SSC-List
+    approximation (kernel C).
     ``state``: a :class:`state.PipelineState` holding ``frozen``,
     ``schedule``, ``crc_matrix`` and ``mls0_kernel`` (default:
     :func:`state.build_state`).  sync_stride: evaluate the coarse timing
@@ -70,13 +73,10 @@ class BatchPipeline:
     def __init__(self, rate: int, oper_mode: int, list_size: int = 8,
                  mode_spec=None, symbol_len_override=None,
                  scl_exact: bool = True, mls_convention: str = "galois",
-                 sync_stride: int = 8, device="cpu", state=None):
+                 sync_stride: int = 8, device="cuda", state=None):
         if list_size != 1 and list_size not in LIST_SIZES:
             raise NotImplementedError(
                 f"the port decodes with list_size 1 or {LIST_SIZES}")
-        if not scl_exact:
-            raise NotImplementedError(
-                "the port's list decoder is the exact one (scl_exact=True)")
         if mls_convention == "auto":
             raise ValueError(
                 "BatchPipeline needs a committed mls_convention (the "
@@ -94,6 +94,7 @@ class BatchPipeline:
             state = build_state(cfg, self.device)
         self.state = state
         self.list_size = list_size
+        self.scl_exact = scl_exact
         frozen = state.frozen.cpu().numpy()
         self.code = PolarCode(n=mode.cons_bits, k=mode.crc_bits,
                               order=mode.code_order, frozen=frozen)
@@ -190,7 +191,8 @@ class BatchPipeline:
             codewords, pm = sc_decode(front["llrs"], self.plan)
         else:
             codewords, pm = scl_decode(front["llrs"], self.plan,
-                                       self.list_size)       # [B, L, n]
+                                       self.list_size,
+                                       self.scl_exact)       # [B, L, n]
         info = codewords[..., self._crc_idx]                 # [B, L, k]
         rem = torch.remainder(info.to(torch.float32) @ self.crc_mat, 2.0)
         crc_ok = rem.sum(dim=-1) == 0                        # [B, L]
@@ -263,13 +265,13 @@ class BatchPipeline:
 
 
 class AdaptivePipeline:
-    """CRC-gated adaptive decode: plain SC first, the exact list decoder
-    only on failure (counterpart of ``modem_tpu.pipeline.
-    AdaptivePipeline``).
+    """CRC-gated adaptive decode: plain SC first, the list decoder only
+    on failure (counterpart of ``modem_tpu.pipeline.AdaptivePipeline``).
 
     Every frame decodes with the SC kernel; the frames whose CRC-32
-    fails decode again, in groups of ``fallback_batch``, with the exact
-    list-``list_size`` kernel, and their result replaces the SC one
+    fails decode again, in groups of ``fallback_batch``, with the
+    list-``list_size`` kernel (exact, or Fast-SSC-List with
+    ``scl_exact=False`` in ``kw``), and their result replaces the SC one
     verbatim.  So every result key equals ``BatchPipeline(list_size=
     list_size)``'s, except on a frame whose greedy SC path passes its CRC
     but falls out of the list.  The two sub-pipelines share one
@@ -281,7 +283,7 @@ class AdaptivePipeline:
     dispatch the next batch before this one's gate and fetch."""
 
     def __init__(self, rate: int, oper_mode: int, list_size: int = 8,
-                 fallback_batch: int = 16, device="cpu", state=None, **kw):
+                 fallback_batch: int = 16, device="cuda", state=None, **kw):
         self.sc = BatchPipeline(rate, oper_mode, list_size=1, device=device,
                                 state=state, **kw)
         self.scl = BatchPipeline(rate, oper_mode, list_size=list_size,
@@ -311,7 +313,8 @@ class AdaptivePipeline:
     def resolve(self, handle) -> dict:
         """Wait for this batch's packed result (its event, not the whole
         stream: a batch dispatched since runs on), gate on CRC, and
-        re-decode the failing frames with the exact list decoder; returns
+        re-decode the failing frames with the list decoder (kernel B, or
+        C with ``scl_exact=False``); returns
         the merged host dict (the :meth:`BatchPipeline.fetch` keys)."""
         front, packed, event = handle
         if event is not None:
@@ -346,7 +349,7 @@ class AdaptivePipeline:
 @functools.lru_cache(maxsize=None)
 def cached_pipeline(rate: int, oper_mode: int, list_size: int = 8,
                     mls_convention: str = "galois",
-                    device: str = "cpu") -> BatchPipeline:
+                    device: str = "cuda") -> BatchPipeline:
     return BatchPipeline(rate, oper_mode, list_size,
                          mls_convention=mls_convention, device=device)
 
@@ -354,6 +357,6 @@ def cached_pipeline(rate: int, oper_mode: int, list_size: int = 8,
 @functools.lru_cache(maxsize=None)
 def cached_adaptive_pipeline(rate: int, oper_mode: int, list_size: int = 8,
                              mls_convention: str = "galois",
-                             device: str = "cpu") -> AdaptivePipeline:
+                             device: str = "cuda") -> AdaptivePipeline:
     return AdaptivePipeline(rate, oper_mode, list_size,
                             mls_convention=mls_convention, device=device)

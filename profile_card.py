@@ -12,12 +12,12 @@ Two modes, one process each (run from the root of a checkout):
       device idle share of that one run, and the largest kernels.
 
   python3 profile_card.py --rows [--out FILE]
-      per-opcode clock profile of both decode kernels: instrumented
+      per-opcode clock profile of the decode kernels: instrumented
       copies of csrc/sc_decode.cu and csrc/scl_decode.cu, built under
       build/profile_card/, in which thread 0 of block 0 adds the
       clock64() cycles of each schedule row to its opcode; kernel A at
-      1 and 512 frames, kernel B at 1 and 16, sigma 0.70 wire-size
-      frames.  The instrumentation adds one clock read and a branch to
+      1 and 512 frames, kernels B and C (list-8 exact and fast) at 1
+      and 16, sigma 0.70 wire-size frames.  The instrumentation adds one clock read and a branch to
       each row.
 
 Prints the card's name and power limit and a JSON summary, also
@@ -85,7 +85,7 @@ def wire_llrs(frames: int, dev):
 
 
 def row_profile(dev) -> dict:
-    """Per-opcode cycles of block 0 for kernels A and B."""
+    """Per-opcode cycles of block 0 for kernels A, B and C."""
     prof_dir = ROOT / "build" / "profile_card"
     (prof_dir / "csrc").mkdir(parents=True, exist_ok=True)
     for name in ("sc_decode", "scl_decode"):
@@ -102,7 +102,10 @@ def row_profile(dev) -> dict:
             ("A", sc_mod._library(), lambda x: sc_mod.sc_decode(x, plan),
              (1, 512)),
             ("B", scl_mod._library(),
-             lambda x: scl_mod.scl_decode(x, plan, 8), (1, 16))):
+             lambda x: scl_mod.scl_decode(x, plan, 8), (1, 16)),
+            ("C", scl_mod._library(),
+             lambda x: scl_mod.scl_decode(x, plan, 8, exact=False),
+             (1, 16))):
         lib.prof_read.argtypes = [ctypes.c_void_p]
         for frames in sizes:
             x = llrs[:frames].contiguous()

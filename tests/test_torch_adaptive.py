@@ -25,13 +25,13 @@ EXACT_KEYS = ("ok", "bits", "p0", "flips", "sync_gate")
 def _toy(cls, **kw):
     cfg = toy_config()
     return cls(rate=cfg.rate, oper_mode=0, list_size=4, mode_spec=cfg.mode,
-               symbol_len_override=cfg.symbol_len, **kw)
+               symbol_len_override=cfg.symbol_len, device="cpu", **kw)
 
 
-def _jax_toy(cls):
+def _jax_toy(cls, **kw):
     cfg = jax_toy_config()
     return cls(rate=cfg.rate, oper_mode=0, list_size=4, mode_spec=cfg.mode,
-               symbol_len_override=cfg.symbol_len)
+               symbol_len_override=cfg.symbol_len, **kw)
 
 
 def assert_matches_jax(got: dict, want: dict):
@@ -163,11 +163,28 @@ def test_async_handles_resolve_in_order(port, clean, noisy, noisy_results):
 
 
 def test_cached_factories():
-    a = cached_adaptive_pipeline(8000, 6)
-    assert a is cached_adaptive_pipeline(8000, 6)
+    a = cached_adaptive_pipeline(8000, 6, device="cpu")
+    assert a is cached_adaptive_pipeline(8000, 6, device="cpu")
     assert (a.sc.list_size, a.scl.list_size, a.fallback_batch) == (1, 8, 16)
     assert a.scl.state is a.sc.state
-    p = cached_pipeline(8000, 6, 4)
-    assert p is cached_pipeline(8000, 6, 4) and p.list_size == 4
-    assert cached_pipeline(8000, 6).list_size == 8
+    p = cached_pipeline(8000, 6, 4, device="cpu")
+    assert p is cached_pipeline(8000, 6, 4, device="cpu") and p.list_size == 4
+    assert cached_pipeline(8000, 6, device="cpu").list_size == 8
 
+
+
+def test_fast_list_decode_matches_jax(noisy):
+    """scl_exact=False (the Fast-SSC-List decoder, kernel C): on the noisy
+    batch the port's AdaptivePipeline escalates the frames JAX's does and
+    agrees with it on every key, and equals the port's BatchPipeline(
+    list_size=4, scl_exact=False) outright."""
+    x, _ = noisy
+    port = _toy(AdaptivePipeline, scl_exact=False)
+    assert port.scl.scl_exact is False
+    jax_adaptive = _jax_toy(JaxAdaptivePipeline, scl_exact=False)
+    got = port.decode_batch(x)
+    want = jax_adaptive.decode_batch(x)
+    assert port.last_fallbacks == jax_adaptive.last_fallbacks > 0
+    assert_matches_jax(got, want)
+    whole = _toy(BatchPipeline, scl_exact=False, state=port.sc.state)
+    assert_equal(got, whole.fetch(whole.decode_batch(x)))

@@ -10,12 +10,15 @@ imports jax):
 """
 
 import functools
+import os
+import wave
 
 import numpy as np
 import pytest
 import torch
 
 from modem_tpu_torch import bits as B
+from modem_tpu_torch.decoder import Decoder
 from modem_tpu_torch.encoder import Encoder
 from modem_tpu_torch.fec.polar import PolarCode
 from modem_tpu_torch.kernels.sc_decode import (ScPlan, sc_decode,
@@ -30,6 +33,8 @@ from modem_tpu_torch.pipeline import AdaptivePipeline, BatchPipeline
 CODES = {"toy": (224, 144, 8, 0.75), "chunked": (960, 480, 10, 0.85),
          "narrow": (56, 36, 6, 0.8)}
 EXACT_KEYS = ("ok", "bits", "p0", "flips", "sync_gate")
+WIRE = (64800, 43072, 16, 0.70)   # wire size at the list decoders' edge
+_DATA = os.path.join(os.path.dirname(__file__), "data")
 
 
 def noisy_llrs(n, k, order, sigma, frames=16, seed=9):
@@ -59,7 +64,8 @@ def toy_batches():
     rng = np.random.default_rng(3)
     payloads = [rng.integers(0, 256, cfg.mode.data_bytes,
                              dtype=np.uint8).tobytes() for _ in range(8)]
-    waves, _ = Encoder(cfg).encode_batch(payloads, B.base37_encode("TOY"))
+    waves, _ = Encoder(cfg, device="cpu").encode_batch(
+        payloads, B.base37_encode("TOY"))
     pad = torch.zeros(8, cfg.symbol_len, dtype=torch.complex64)
     recs = torch.view_as_real(torch.cat([pad, waves, pad], dim=1)).numpy()
     rng = np.random.default_rng(42)
@@ -165,3 +171,60 @@ def test_adaptive_pipeline_matches_cpu(cuda_device):
     want = cpu.decode_batch(recs)
     assert card.last_fallbacks == cpu.last_fallbacks > 0
     assert_same_result(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,lsz", [(n, lsz) for n in sorted(CODES)
+                                      for lsz in (2, 4, 8)] + [("wire", 8)])
+def test_fast_list_kernel_matches_plain_version(cuda_device, name, lsz):
+    """Kernel C (scl_exact=False) against its plain version on the same
+    card tensors, toy codes at L = 2, 4, 8 and 16 wire-size frames at
+    L = 8: the same codewords in every list, in the same lane order,
+    sorted path metrics within rtol 1e-5, atol 1e-3."""
+    code, llrs = noisy_llrs(*(WIRE if name == "wire" else CODES[name]))
+    plan = ScPlan.from_frozen(code.frozen)
+    x = llrs.to(cuda_device)
+    before = scl_decode.launches, scl_decode.fast_launches
+    cw, pm = scl_decode(x, plan, lsz, exact=False)
+    torch.cuda.synchronize()
+    assert (scl_decode.launches, scl_decode.fast_launches) == (
+        before[0], before[1] + 1)
+    cw_r, pm_r = scl_decode_reference(x, plan.sched, lsz, exact=False)
+    for b in range(len(llrs)):
+        assert np.array_equal(rows_sorted(cw[b]), rows_sorted(cw_r[b])), b
+    assert torch.equal(cw, cw_r)
+    assert torch.allclose(pm.sort(dim=1).values, pm_r.sort(dim=1).values,
+                          rtol=1e-5, atol=1e-3)
+
+
+def read_golden() -> np.ndarray:
+    with wave.open(os.path.join(_DATA, "golden_mode6_galois.wav")) as f:
+        raw = np.frombuffer(f.readframes(f.getnframes()),
+                            dtype="<i2").reshape(-1, 2)
+    x = raw.astype(np.float32) / 32767.0
+    return (x[:, 0] + 1j * x[:, 1]).astype(np.complex64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scl_exact", [True, False])
+@pytest.mark.parametrize("channels", [2, 1])
+def test_decoder_golden_on_card(cuda_device, scl_exact, channels):
+    """The interactive Decoder on the card decodes the golden recording
+    byte-exact through kernel B (or C), and agrees with its CPU run on
+    ok, payload, mode, call sign, symbol position and bit flips."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = read_golden()
+    samples = rec if channels == 2 else rec.real.copy()
+    want_payload = np.load(os.path.join(
+        _DATA, "waveform_pin_payload_seed.npy")).tobytes()
+    card = Decoder(8000, scl_exact=scl_exact, device=cuda_device)
+    before = scl_decode.launches, scl_decode.fast_launches
+    got = card.decode(samples, channels=channels)
+    after = scl_decode.launches, scl_decode.fast_launches
+    assert after == ((before[0] + 1, before[1]) if scl_exact
+                     else (before[0], before[1] + 1))
+    want = Decoder(8000, scl_exact=scl_exact, device="cpu").decode(
+        samples, channels=channels)
+    assert got.ok and got.payload == want.payload == want_payload
+    for key in ("oper_mode", "call_sign", "symbol_pos", "bit_flips"):
+        assert getattr(got, key) == getattr(want, key), key

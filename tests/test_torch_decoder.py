@@ -1,0 +1,366 @@
+"""The port's interactive decoder and its stages against the JAX package's.
+
+Same numpy inputs into both (seeded with numpy; recordings from the JAX
+encoder or the frozen golden WAV):
+
+- ``fec.osd.osd_decode`` against ``modem_tpu.fec.osd`` and ``osd_np`` on
+  tests/test_osd.py's cases: data bits and ``unique`` exact;
+- ``dsp.frontend`` within 1e-5 (the DC block's window sums are f64
+  differences here, f32 block products in JAX);
+- the Schmitt trigger exact on random timing arrays with a carry;
+- the whole-recording timing metric within 1e-3 of JAX's
+  ``metrics_host``, the Schmitt state and edges exact, and the scan's raw
+  events (edge, n_max) exact and their phase within 1e-5 rad, chunked or
+  whole; candidates' p0 and ok exact, CFOs within 1e-6 rad/sample;
+- ``theil_sen_all_pairs`` within 1e-6 (one element of the same sorted
+  f32 slopes);
+- ``fec.scl_np`` equal outright;
+- ``Decoder(8000, device="cpu")`` against ``cached_decoder(8000)`` on the
+  golden WAV and a mode-6 loopback, analytic and mono: ok, payload,
+  oper_mode, call_sign, symbol_pos and bit_flips exact; cfo_hz within
+  1e-3 Hz, sfo_ppm within 1e-3 ppm, snr_db within rtol 1e-4 (f32 FFTs
+  round differently); the transcript line for line, with the numbers of
+  the coarse cfo, coarse sfo, finer cfo and Es/N0 lines within the same
+  tolerances.
+"""
+
+import io
+import os
+import wave
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from modem_tpu import bits as jbits
+from modem_tpu import dsp as jdsp
+from modem_tpu import sync as jsync
+from modem_tpu import track as jtrack
+from modem_tpu.decoder import cached_decoder as jax_cached_decoder
+from modem_tpu.encoder import cached_encoder
+from modem_tpu.fec import bch as jbch
+from modem_tpu.fec.osd import osd_decode as jax_osd_decode
+from modem_tpu.fec.osd_np import osd_decode_np
+from modem_tpu.fec.polar import PolarCode as JaxPolarCode
+from modem_tpu.fec.scl_np import scl_decode_np as jax_scl_np
+from modem_tpu.numerology import make_config
+from modem_tpu.parallel import toy_config as jax_toy_config
+from modem_tpu.parallel import toy_recordings
+from modem_tpu_torch import dsp, sync, track
+from modem_tpu_torch.decoder import Decoder
+from modem_tpu_torch.fec import scl_np
+from modem_tpu_torch.fec.osd import osd_decode
+from modem_tpu_torch.numerology import toy_config
+
+_DATA = os.path.join(os.path.dirname(__file__), "data")
+
+
+# -- OSD ---------------------------------------------------------------------
+
+def _osd_blocks(name):
+    """tests/test_osd.py's inputs: (soft [n, 255] int8, sent data [n, 71])."""
+    g = jbch.generator_matrix()
+    if name == "noiseless":
+        rng = np.random.default_rng(1)
+        u = rng.integers(0, 2, (1, 71), dtype=np.uint8)
+        soft = 127 * (1 - 2 * ((u @ g) % 2).astype(np.int32))
+    elif name == "erasure":
+        rng = np.random.default_rng(3)
+        u = rng.integers(0, 2, (1, 71), dtype=np.uint8)
+        soft = 100 * (1 - 2 * ((u @ g) % 2).astype(np.int32))
+        soft[0, rng.choice(255, 40, replace=False)] = 0
+    else:
+        sigma = float(name[len("awgn"):])
+        rng = np.random.default_rng(2)
+        us, softs = [], []
+        for _ in range(5):
+            u = rng.integers(0, 2, 71, dtype=np.uint8)
+            rx = (1.0 - 2.0 * ((u @ g) % 2)) + sigma * rng.standard_normal(255)
+            us.append(u)
+            softs.append(np.clip(np.round(127 * rx / 4), -128, 127))
+        u, soft = np.stack(us), np.stack(softs)
+    return soft.astype(np.int8), u
+
+
+_jax_osd = jax.jit(jax_osd_decode)
+
+
+@pytest.mark.parametrize("name", ["noiseless", "awgn0.5", "awgn0.8",
+                                  "erasure"])
+def test_osd_matches_jax(name):
+    """One batched call against JAX's and the numpy OSD block by block."""
+    soft, sent = _osd_blocks(name)
+    data, unique = osd_decode(torch.from_numpy(soft))
+    assert data.shape == (len(soft), 71) and data.dtype == torch.uint8
+    for i, s in enumerate(soft):
+        jd, ju = (np.asarray(v) for v in _jax_osd(s))
+        nd, nu = osd_decode_np(s)
+        assert np.array_equal(data[i].numpy(), jd), i
+        assert bool(unique[i]) == bool(ju) == bool(nu), i
+        assert np.array_equal(np.asarray(nd), jd), i
+    ok = sum(bool(unique[i]) and np.array_equal(data[i].numpy(), sent[i])
+             for i in range(len(soft)))
+    assert ok >= len(soft) - 1
+
+
+def test_osd_ties_report_not_unique():
+    """An all-erased block: every codeword scores 0, so the first minimum
+    (the all-zero word) wins and ``unique`` is False, as in JAX."""
+    soft = np.zeros((1, 255), np.int8)
+    data, unique = osd_decode(torch.from_numpy(soft))
+    jd, ju = (np.asarray(v) for v in _jax_osd(soft[0]))
+    assert np.array_equal(data[0].numpy(), jd) and not bool(ju)
+    assert not bool(unique[0])
+
+
+# -- front end ---------------------------------------------------------------
+
+def test_frontend_matches_jax():
+    cfg = make_config(8000, 6, 2000)
+    rng = np.random.default_rng(4)
+    t = np.arange(6000)
+    x = (0.3 + 0.5 * np.sin(0.37 * t)
+         + 0.1 * rng.standard_normal(6000)).astype(np.float32)
+    assert np.array_equal(dsp.hilbert_taps(cfg.filter_len),
+                          jdsp.hilbert_taps(cfg.filter_len))
+    got = dsp.frontend(x, 1, 2 * cfg.extended_len, cfg.filter_len,
+                       "cpu").numpy()
+    want = np.asarray(jdsp.frontend(x, 1, 2 * cfg.extended_len,
+                                    cfg.filter_len))
+    assert got.dtype == np.complex64 and got.shape == (6000,)
+    assert np.allclose(got.real, want[:, 0], atol=1e-5)
+    assert np.allclose(got.imag, want[:, 1], atol=1e-5)
+    iq = rng.standard_normal((50, 2)).astype(np.float32)
+    got = dsp.frontend(iq, 2, 1, 1, "cpu")
+    assert np.array_equal(torch.view_as_real(got), iq)
+
+
+# -- sync scan ---------------------------------------------------------------
+
+@pytest.mark.parametrize("carry", [False, True])
+def test_schmitt_matches_jax(carry):
+    rng = np.random.default_rng(5)
+    t = rng.uniform(0.0, 2.0, (3, 500)).astype(np.float32)
+    s, f = sync.schmitt_falling(torch.from_numpy(t), 0.8, 1.2,
+                                torch.tensor(carry))
+    js, jf = jsync.schmitt_falling(t, 0.8, 1.2, np.bool_(carry))
+    assert np.array_equal(s.numpy(), np.asarray(js))
+    assert np.array_equal(f.numpy(), np.asarray(jf))
+
+
+def test_segmented_argmax_first_max():
+    v = torch.tensor([1.0, 3.0, 3.0, 0.0, 5.0, 5.0, 2.0])
+    start = torch.tensor([False, False, False, True, False, False, True])
+    seg, vmax, first = sync.segmented_argmax(v, start)
+    assert seg.tolist() == [0, 0, 0, 1, 1, 1, 2]
+    assert vmax[:3].tolist() == [3.0, 5.0, 2.0]
+    assert first[:3].tolist() == [1, 4, 6]
+
+
+def _multiframe(copies, seed=3, noise=0.02):
+    recs, _ = toy_recordings(1, seed=seed)
+    x = np.concatenate([np.asarray(recs[0])] * copies, axis=0)
+    rng = np.random.default_rng(42)
+    return x + rng.normal(0, noise, x.shape).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def scan_recs():
+    """A 5-frame and a 24-frame noisy toy recording (split [T, 2])."""
+    return {5: _multiframe(5), 24: _multiframe(24)}
+
+
+def _jax_raw_events(js, x, max_edges):
+    """The JAX host walk's (edge, n_max, phase) triples (scan(host=True))."""
+    timing, phase, state, falling = js.metrics_host(x)
+    raw = []
+    for edge in np.nonzero(falling)[0][:max_edges]:
+        prior = np.nonzero(~state[:edge])[0]
+        rstart = prior[-1] + 1 if len(prior) else 0
+        n_max = rstart + int(np.argmax(timing[rstart:edge]))
+        raw.append((int(edge), n_max,
+                    float(phase[max(n_max - js.match_del, 0)])))
+    return raw
+
+
+def test_metrics_host_matches_jax(scan_recs):
+    """The port's timing metric and Schmitt trigger over the whole
+    recording against JAX's host walk, and every falling edge of the
+    chunked walk against its edges."""
+    x = scan_recs[5]
+    port = sync.Synchronizer(toy_config(), "cpu")
+    js = jsync.Synchronizer(jax_toy_config())
+    t, _ = port._metrics(sync.as_recording(x, "cpu"))
+    s, f = sync.schmitt_falling(t, port.thr_lo, port.thr_hi)
+    jt, jp, jst, jf = js.metrics_host(x)
+    # JAX sums the windows as f32 block products, the port as f64
+    # differences: up to ~2.4e-4 apart on this recording
+    assert np.allclose(t.numpy(), jt, rtol=1e-3, atol=1e-3)
+    assert np.array_equal(s.numpy(), jst) and np.array_equal(f.numpy(), jf)
+    for chunk in (2048, 5000):
+        got = port._events_device(sync.as_recording(x, "cpu"), chunk,
+                                  len(x))
+        assert [e[0] for e in got] == np.nonzero(jf)[0].tolist()
+
+
+@pytest.mark.parametrize("chunk", [64, 1024, 1536, 2048, 4096, None])
+def test_scan_events_match_jax_host_walk(scan_recs, chunk):
+    """The chunked walk's raw events equal the JAX spec's: (edge, n_max)
+    exact in integers, phase within 1e-5 rad; chunk 64 clamps up to the
+    context size."""
+    x = scan_recs[5]
+    port = sync.Synchronizer(toy_config(), "cpu")
+    want = _jax_raw_events(jsync.Synchronizer(jax_toy_config()), x, 32)
+    got = port._events_device(sync.as_recording(x, "cpu"),
+                              chunk or port.CHUNK_SMALL, 32)
+    assert len(want) >= 8
+    assert [e[:2] for e in got] == [e[:2] for e in want]
+    assert np.allclose([e[2] for e in got], [e[2] for e in want], atol=1e-5)
+
+
+@pytest.mark.parametrize("copies,chunk", [(5, None), (5, 1536), (24, None),
+                                          (24, 4096)])
+def test_scan_matches_jax(scan_recs, copies, chunk):
+    """Candidates of the port's scan, chunked and in default chunks,
+    against JAX's scan(host=True) and scan(): p0 and ok exact, CFOs
+    within 1e-6 rad/sample.  The 24-frame recording takes two default
+    chunks."""
+    x = scan_recs[copies]
+    port = sync.Synchronizer(toy_config(), "cpu")
+    js = jsync.Synchronizer(jax_toy_config())
+    want = js.scan(x, max_candidates=8, host=True)
+    assert [(c.p0, c.ok) for c in js.scan(x, max_candidates=8)] == \
+        [(c.p0, c.ok) for c in want]
+    assert sum(c.ok for c in want) >= 4
+    for got in (port.scan(x, max_candidates=8, chunk_samples=chunk),
+                port.scan(x, max_candidates=8)):
+        assert [(c.p0, c.ok) for c in got] == [(c.p0, c.ok) for c in want]
+        for a, b in zip(got, want):
+            assert abs(a.cfo_rad - b.cfo_rad) < 1e-6
+            assert abs(a.frac_cfo - b.frac_cfo) < 1e-6
+            assert a.alts == (() if not a.ok else
+                              ((0, a.p0, a.cfo_rad, a.peak_ratio),))
+
+
+# -- tracking, numpy list decoder ----------------------------------------------
+
+def test_theil_sen_all_pairs_matches_jax():
+    rng = np.random.default_rng(6)
+    x = (np.arange(40) - 20).astype(np.float32)
+    y = (0.01 * x + 0.2 + 0.05 * rng.standard_normal((4, 40))
+         ).astype(np.float32)
+    y[:, 3] += 2.0                          # outliers
+    slope, yint = track.theil_sen_all_pairs(torch.from_numpy(x),
+                                            torch.from_numpy(y))
+    for r in range(4):
+        js, jy = (float(v) for v in jtrack.theil_sen_all_pairs(x, y[r]))
+        assert abs(float(slope[r]) - js) <= 1e-6
+        assert abs(float(yint[r]) - jy) <= 1e-6
+
+
+def test_scl_np_matches_jax():
+    code = JaxPolarCode(n=224, k=144, order=8)
+    rng = np.random.default_rng(7)
+    llr = 2.0 * (1.0 + 0.8 * rng.standard_normal(code.code_len)) / 0.64
+    for lsz in (1, 4, 8):
+        got = scl_np.scl_decode_np(llr, code.frozen, lsz)
+        want = jax_scl_np(llr, code.frozen, lsz)
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1],
+                                                                  want[1])
+
+
+# -- the interactive decoder ----------------------------------------------------
+
+def _golden():
+    with wave.open(os.path.join(_DATA, "golden_mode6_galois.wav")) as f:
+        raw = np.frombuffer(f.readframes(f.getnframes()),
+                            dtype="<i2").reshape(-1, 2)
+    x = raw.astype(np.float32) / 32767.0
+    return (x[:, 0] + 1j * x[:, 1]).astype(np.complex64)
+
+
+def _loopback():
+    cfg = make_config(8000, 6, 2000)
+    rng = np.random.default_rng(99)
+    payload = rng.integers(0, 256, cfg.mode.data_bytes,
+                           dtype=np.uint8).tobytes()
+    wave_, _ = cached_encoder(cfg).encode(payload,
+                                          jbits.base37_encode("N0CALL"))
+    sil = np.zeros(cfg.rate, dtype=np.complex64)
+    return np.concatenate([sil, np.asarray(wave_), sil]), payload
+
+
+@pytest.fixture(scope="module")
+def port_decoder():
+    return Decoder(8000, device="cpu")
+
+
+NUMERIC = {"coarse cfo:": 1e-3, "coarse sfo:": 1e-3, "finer cfo:": 1e-3,
+           "Es/N0 (dB):": None}
+
+
+def assert_same_transcript(got: str, want: str):
+    a, b = got.splitlines(), want.splitlines()
+    assert len(a) == len(b), (a, b)
+    for la, lb in zip(a, b):
+        head = next((h for h in NUMERIC if la.startswith(h)), None)
+        if head is None:
+            assert la == lb
+            continue
+        assert lb.startswith(head)
+        na = [float(v) for v in la[len(head):].split() if v != "Hz"
+              and v != "ppm"]
+        nb = [float(v) for v in lb[len(head):].split() if v != "Hz"
+              and v != "ppm"]
+        assert la.split()[-1] == lb.split()[-1]          # the unit
+        if NUMERIC[head] is None:
+            assert np.allclose(na, nb, rtol=1e-4), (la, lb)
+        else:
+            assert np.allclose(na, nb, rtol=0, atol=NUMERIC[head]), (la, lb)
+
+
+@pytest.mark.parametrize("name,channels", [("golden", 2), ("golden", 1),
+                                           ("loopback", 2),
+                                           ("loopback", 1)])
+def test_decoder_matches_jax(port_decoder, name, channels):
+    if name == "golden":
+        rec = _golden()
+        sent = np.load(os.path.join(
+            _DATA, "waveform_pin_payload_seed.npy")).tobytes()
+    else:
+        rec, sent = _loopback()
+    samples = rec if channels == 2 else rec.real.astype(np.float32)
+    log, jlog = io.StringIO(), io.StringIO()
+    got = port_decoder.decode(samples, channels=channels, log=log)
+    want = jax_cached_decoder(8000).decode(samples, channels=channels,
+                                           log=jlog)
+    assert got.ok and want.ok, (got.status, want.status)
+    assert got.payload == want.payload == sent
+    for key in ("ok", "oper_mode", "call_sign", "symbol_pos", "bit_flips",
+                "status", "status_emitted"):
+        assert getattr(got, key) == getattr(want, key), key
+    assert (got.oper_mode, got.call_sign) == (6, "N0CALL")
+    assert abs(got.cfo_hz - want.cfo_hz) <= 1e-3
+    assert abs(got.sfo_ppm - want.sfo_ppm) <= 1e-3
+    assert np.allclose(got.snr_db, want.snr_db, rtol=1e-4)
+    assert_same_transcript(log.getvalue(), jlog.getvalue())
+
+
+def test_decoder_reports_no_preamble(port_decoder):
+    res = port_decoder.decode(np.zeros(20000, np.complex64), channels=2)
+    want = jax_cached_decoder(8000).decode(np.zeros(20000, np.complex64),
+                                           channels=2)
+    assert (res.ok, res.status) == (want.ok, want.status) == (
+        False, "no preamble found")
+
+
+def test_decoder_options():
+    with pytest.raises(ValueError):
+        Decoder(11025, device="cpu")
+    with pytest.raises(NotImplementedError):
+        Decoder(8000, mls_convention="auto", device="cpu")
+    with pytest.raises(NotImplementedError):
+        Decoder(8000, list_size=3, device="cpu")
+    dec = Decoder(8000, scl_exact=False, device="cpu")
+    assert dec.scl_exact is False and dec.estimator == "all_pairs"

@@ -25,7 +25,7 @@ _DATA = os.path.join(os.path.dirname(__file__), "data")
 
 @pytest.fixture(scope="module")
 def toy_pair():
-    return Encoder(toy_config()), JaxEncoder(jax_toy_config())
+    return Encoder(toy_config(), device="cpu"), JaxEncoder(jax_toy_config())
 
 
 def test_constants_match(toy_pair):
@@ -68,11 +68,13 @@ def test_encoder_rejects_what_waits():
     cfg = toy_config()
     import dataclasses
     with pytest.raises(ValueError):
-        Encoder(dataclasses.replace(cfg, mls_convention="auto"))
+        Encoder(dataclasses.replace(cfg, mls_convention="auto"),
+                device="cpu")
     with pytest.raises(NotImplementedError):
-        Encoder(dataclasses.replace(cfg, mls_convention="msb"))
+        Encoder(dataclasses.replace(cfg, mls_convention="msb"),
+                device="cpu")
     with pytest.raises(ValueError):
-        Encoder(cfg).mesg_bits(b"short")
+        Encoder(cfg, device="cpu").mesg_bits(b"short")
 
 
 def test_mode6_waveform_fingerprint():
@@ -81,7 +83,7 @@ def test_mode6_waveform_fingerprint():
     pin = np.load(os.path.join(_DATA, "waveform_pin_mode6_galois.npy"))
     payload = np.load(os.path.join(
         _DATA, "waveform_pin_payload_seed.npy")).tobytes()
-    enc = Encoder(make_config(8000, 6, 2000))
+    enc = Encoder(make_config(8000, 6, 2000), device="cpu")
     wave, _ = enc.encode_batch([payload], bits.base37_encode("N0CALL"))
     wave = wave[0].numpy()
     q = np.clip(np.rint(wave.real * 32767.0), -32768, 32767).astype(np.int16)

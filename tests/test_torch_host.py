@@ -92,6 +92,13 @@ def test_base37_matches(text):
     assert bits.base37_encode(text) == jbits.base37_encode(text)
 
 
+@pytest.mark.parametrize("text", ["N0CALL", "TOY", "A B", "Z9", ""])
+def test_base37_decode_matches(text):
+    value = jbits.base37_encode(text)
+    assert bits.base37_decode(value) == jbits.base37_decode(value)
+    assert bits.base37_decode(value).lstrip() == text.upper().lstrip()
+
+
 @pytest.mark.parametrize("n,k,order", [(224, 144, 8), (960, 480, 10),
                                        (64800, 43072, 16),
                                        (64512, 43072, 16)])
@@ -105,6 +112,22 @@ def test_bch_encode_matches():
     for _ in range(4):
         d = rng.integers(0, 2, 71, dtype=np.uint8)
         assert np.array_equal(bch.encode(d), jbch.encode(d))
+
+
+def test_bch_generator_matrix_matches():
+    g = bch.generator_matrix()
+    assert g.dtype == np.uint8 and g.shape == (71, 255)
+    assert np.array_equal(g, jbch.generator_matrix())
+
+
+@pytest.mark.parametrize("lsz", [2, 4, 8])
+@pytest.mark.parametrize("exact", [True, False])
+def test_scl_params_match(lsz, exact):
+    """The leaf rules of both list modes: exact one-shot, or T_RATE1 = 4
+    serial rounds (fast)."""
+    assert schedule.T_RATE1 == scl_vm.T_RATE1 == 4
+    assert (schedule.scl_params(lsz, exact, False)
+            == scl_vm.scl_params(lsz, exact, False))
 
 
 @pytest.mark.parametrize("n,k,order", [(224, 144, 8), (960, 480, 10),

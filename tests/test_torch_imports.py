@@ -27,7 +27,9 @@ def test_every_module_is_listed():
     for name in ("modem_tpu_torch.pipeline", "modem_tpu_torch.state",
                  "modem_tpu_torch.kernels.sc_decode",
                  "modem_tpu_torch.kernels.scl_decode",
-                 "modem_tpu_torch.fec.schedule"):
+                 "modem_tpu_torch.fec.schedule",
+                 "modem_tpu_torch.decoder", "modem_tpu_torch.dsp",
+                 "modem_tpu_torch.fec.osd", "modem_tpu_torch.fec.scl_np"):
         assert name in mods
 
 

@@ -27,6 +27,7 @@ EXACT_KEYS = ("ok", "bits", "p0", "flips", "sync_gate", "multiframe")
 def toy_port(**kw):
     cfg = toy_config()
     kw.setdefault("list_size", 1)
+    kw.setdefault("device", "cpu")
     return BatchPipeline(rate=cfg.rate, oper_mode=0, mode_spec=cfg.mode,
                          symbol_len_override=cfg.symbol_len, **kw)
 
@@ -170,8 +171,6 @@ def test_strided_sync_matches_full_rate(batches):
 
 def test_options_that_wait_raise():
     with pytest.raises(NotImplementedError):
-        toy_port(list_size=8, scl_exact=False)
-    with pytest.raises(NotImplementedError):
         toy_port(list_size=3)
     with pytest.raises(NotImplementedError):
         toy_port(mls_convention="fibonacci")
@@ -181,8 +180,8 @@ def test_options_that_wait_raise():
 
 def test_sync_stride_fallback_when_indivisible():
     """44.1 kHz has match_del = 441: stride 8 falls back to full rate."""
-    assert BatchPipeline(44100, 6).sync_stride == 1
-    assert BatchPipeline(8000, 6).sync_stride == 8
+    assert BatchPipeline(44100, 6, device="cpu").sync_stride == 1
+    assert BatchPipeline(8000, 6, device="cpu").sync_stride == 8
 
 
 def read_golden(name="golden_mode6_galois.wav"):
@@ -200,7 +199,7 @@ def test_golden_recording_decodes():
     wire-size pipeline on the CPU (plain SC path, no JAX)."""
     payload = np.load(os.path.join(
         _DATA, "waveform_pin_payload_seed.npy")).tobytes()
-    pipe = BatchPipeline(8000, 6, list_size=1)
+    pipe = BatchPipeline(8000, 6, list_size=1, device="cpu")
     res = pipe.fetch(pipe.decode_batch(read_golden()[None]))
     assert res["ok"][0] and res["sync_gate"][0]
     assert res["flips"][0] == 0
@@ -225,7 +224,7 @@ def test_wire_demod_matches_jax():
     split = np.stack([recs.real, recs.imag], axis=-1).astype(np.float32)
     ref = JaxBatchPipeline(8000, 6, list_size=1)
     want = jax.jit(jax.vmap(ref._demod_one))(jnp.asarray(split))
-    got = BatchPipeline(8000, 6, list_size=1).demod(recs)
+    got = BatchPipeline(8000, 6, list_size=1, device="cpu").demod(recs)
     for key in ("p0", "sync_gate", "multiframe"):
         assert np.array_equal(got[key].numpy(), np.asarray(want[key])), key
     llr_w = np.asarray(want["llrs"])

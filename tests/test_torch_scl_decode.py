@@ -1,14 +1,17 @@
-"""The port's exact list decoder (modem_tpu_torch.kernels.scl_decode)
-against the JAX package's: the numpy oracle, the XLA schedule VM
-(make_decoder(frozen, L, exact=True)) and the Pallas kernel in interpret
-mode.
+"""The port's list decoders (modem_tpu_torch.kernels.scl_decode) against
+the JAX package's: the numpy oracle, the XLA schedule VM
+(make_decoder(frozen, L, exact)) and the Pallas kernel in interpret
+mode, for the exact mode (kernel B) and the Fast-SSC-List mode
+(exact=False, kernel C).
 
 Same seeded numpy LLRs into every decoder.  The surviving codeword sets
 must be equal (sorted by codeword); path metrics, sorted, within rtol
 1e-5 and atol 1e-3 of the VM and of Pallas (f32 penalty sums taken in
 another order) and within rtol 1e-4 and atol 1e-2 of the oracle, which
 sums in f64.  On integer LLRs every sum is exact in any order, and the
-port must equal the VM outright, lane order included.
+port must equal the VM outright, lane order included.  The fast mode is
+held to the same tolerances against its own VM and Pallas instances; at
+wire size it loses the one oracle frame the VM's fast mode loses.
 """
 
 import functools
@@ -196,11 +199,13 @@ def test_cpu_tensor_takes_plain_version():
     """A CPU tensor runs scl_decode_reference and launches nothing."""
     frozen, _cw, llrs = _noisy_llrs(*CODES["toy"], frames=2)
     plan = _plan(frozen)
-    before = scl_decode.launches
-    got = scl_decode(torch.from_numpy(llrs), plan, 8)
-    want = scl_decode_reference(torch.from_numpy(llrs), plan.sched, 8)
-    assert scl_decode.launches == before
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    before = scl_decode.launches, scl_decode.fast_launches
+    for exact in (True, False):
+        got = scl_decode(torch.from_numpy(llrs), plan, 8, exact)
+        want = scl_decode_reference(torch.from_numpy(llrs), plan.sched, 8,
+                                    exact)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (scl_decode.launches, scl_decode.fast_launches) == before
 
 
 def wire_frame(code, sigma, i):
@@ -232,3 +237,85 @@ def test_wire_size_recovery_matches_oracle():
         hit = bool((cws[j] == made[j][1]).all(dim=1).any())
         assert hit == oracle[f"0.7:{i}"], i
 
+
+
+# -- the Fast-SSC-List mode (exact=False, kernel C) -------------------------
+
+@functools.lru_cache(maxsize=None)
+def fast_case(name):
+    """(frozen, sent codeword, llrs, {L: port codewords, pm}) of
+    :func:`case`'s inputs decoded by the port's fast mode at L = 2, 4, 8."""
+    frozen, cw, llrs, _ = case(name)
+    plan = _plan(frozen)
+    out = {lsz: tuple(v.numpy() for v in scl_decode(
+        torch.from_numpy(llrs), plan, lsz, exact=False)) for lsz in (2, 4, 8)}
+    return frozen, cw, llrs, out
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("lsz", [2, 4, 8])
+def test_fast_matches_xla_vm(name, lsz):
+    """The surviving sets of make_decoder(frozen, L, exact=False)."""
+    frozen, _cw, llrs, out = fast_case(name)
+    vm = jax.jit(jax.vmap(scl_vm.make_decoder(frozen, lsz, exact=False)))
+    c_vm, p_vm = (np.asarray(v) for v in vm(jnp.asarray(llrs)))
+    assert_same_lists(*out[lsz], c_vm, p_vm, rtol=1e-5, atol=1e-3)
+    if name in CODES and lsz == 8:
+        assert (out[8][0] == _cw).all(axis=2).any(axis=1).any()
+
+
+# the exact=False cases of tests/test_pallas.py, at every list size;
+# ~15 s a case on the CPU
+@pytest.mark.parametrize("name", ["toy", "chunked"])
+@pytest.mark.parametrize("lsz", [2, 4, 8])
+def test_fast_matches_pallas_interpret(name, lsz):
+    frozen, _cw, llrs, out = fast_case(name)
+    pal = make_pallas_decoder(frozen, lsz, frames_per_cell=2,
+                              interpret=True, exact=False)
+    c_p, p_p = (np.asarray(v) for v in pal(jnp.asarray(llrs)))
+    assert_same_lists(*out[lsz], c_p, p_p, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_fast_integer_llrs_match_vm_exactly(name):
+    """Integer LLRs: the fast decode equals the VM's bit for bit, lane
+    order, codewords and path metrics, at L = 8 and 2."""
+    frozen = case(name)[0]
+    rng = np.random.default_rng(11)
+    shape = (FRAMES, len(frozen))
+    llrs = (rng.integers(1, 5, shape)
+            * rng.choice([-1, 1], shape)).astype(np.float32)
+    for lsz in (8, 2):
+        cws, pm = scl_decode_reference(torch.from_numpy(llrs),
+                                       _plan(frozen).sched, lsz, exact=False)
+        vm = jax.jit(jax.vmap(scl_vm.make_decoder(frozen, lsz, exact=False)))
+        c_vm, p_vm = (np.asarray(v) for v in vm(jnp.asarray(llrs)))
+        assert np.array_equal(cws.numpy(), c_vm)
+        assert np.array_equal(pm.numpy(), p_vm)
+
+
+def test_fast_wire_size_recovery_matches_vm_outcomes():
+    """The plain fast list-8 decoder at wire size (no JAX): the recovery
+    of tests/test_scl_vm.py's WIRE_ORACLE frames, and the one oracle
+    frame the fast mode loses, (0.72, 52), which the oracle and the
+    exact mode recover."""
+    with open(_ORACLE) as f:
+        oracle = json.load(f)
+    code = PolarCode(64800, 43072, 16)
+    frames = [(0.70, 0, True), (0.70, 1, True), (0.70, 2, True),
+              (0.72, 0, False), (0.72, 52, False)]
+    assert oracle["0.72:52"] and not oracle["0.72:0"]
+    made = [wire_frame(code, sigma, i) for sigma, i, _ in frames]
+    llrs = torch.stack([m[0] for m in made])
+    cws, _pm = scl_decode(llrs, _plan(code.frozen), 8, exact=False)
+    for j, (sigma, i, want) in enumerate(frames):
+        hit = bool((cws[j] == made[j][1]).all(dim=1).any())
+        assert hit == want, (sigma, i)
+
+
+def test_card_wire_inputs_are_these():
+    """tests/test_torch_card.py's wire-size LLRs (no JAX) are bit for bit
+    the ones the JAX package's polar code makes from the same seed."""
+    from test_torch_card import WIRE, noisy_llrs
+    _code, llrs = noisy_llrs(*WIRE, frames=3)
+    assert np.array_equal(llrs.numpy(), _noisy_llrs(*WIRE, frames=3)[2])

@@ -86,10 +86,10 @@ def test_pipeline_from_jax_state_matches(toy):
     port = BatchPipeline(rate=cfg.rate, oper_mode=0, list_size=1,
                          mode_spec=cfg.mode,
                          symbol_len_override=cfg.symbol_len,
-                         state=state_from_numpy(**arrays))
+                         device="cpu", state=state_from_numpy(**arrays))
     own = BatchPipeline(rate=cfg.rate, oper_mode=0, list_size=1,
                         mode_spec=cfg.mode,
-                        symbol_len_override=cfg.symbol_len)
+                        symbol_len_override=cfg.symbol_len, device="cpu")
     recs, payloads = toy_recordings(4, seed=17)
     rng = np.random.default_rng(18)
     x = np.asarray(recs) + 0.2 * rng.standard_normal(
@@ -105,8 +105,9 @@ def test_pipeline_from_jax_state_matches(toy):
 
 def test_encoder_from_jax_state_matches(toy):
     _pipe, arrays = toy
-    enc = Encoder(toy_config(), state=state_from_numpy(**arrays))
-    own = Encoder(toy_config())
+    enc = Encoder(toy_config(), device="cpu",
+                  state=state_from_numpy(**arrays))
+    own = Encoder(toy_config(), device="cpu")
     payload = bytes(range(toy_config().mode.data_bytes))
     call = jbits.base37_encode("TOY")
     a, _ = enc.encode_batch([payload], call)

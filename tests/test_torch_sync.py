@@ -29,7 +29,7 @@ def recordings():
 
 @pytest.fixture(scope="module")
 def pair():
-    return (sync.Synchronizer(numerology.toy_config()),
+    return (sync.Synchronizer(numerology.toy_config(), "cpu"),
             jsync.Synchronizer(jax_toy_config()))
 
 
@@ -75,7 +75,7 @@ def test_constants_match(pair):
 @pytest.mark.parametrize("rate,mode", [(8000, 6), (16000, 7), (44100, 6),
                                        (48000, 10)])
 def test_stride_rule_matches(rate, mode):
-    port = sync.Synchronizer(numerology.make_config(rate, mode))
+    port = sync.Synchronizer(numerology.make_config(rate, mode), "cpu")
     ref = jsync.Synchronizer(jax_make_config(rate, mode))
     for stride in (1, 2, 4, 8, 16):
         assert port.stride_ok(stride) == ref.stride_ok(stride)

@@ -12,8 +12,10 @@ or C).
 
 Phases:
   1. the card's name and power limit (nvidia-smi);
-  2. build both kernel libraries (nvcc, sm_90a), one after the other,
-     and report the build seconds and ptxas lines;
+  2. build every kernel library (nvcc, sm_90a), one nvcc each, all
+     started together: kernel A, kernels B and C, their C' options
+     (scl_decode.cu again with -DSCL_DECODE_OPTIONS) and the probes D, E
+     and F; report the build seconds and ptxas lines;
   3. the SC kernel against its plain PyTorch version on 64 noisy
      wire-size frames (noise at which plain SC loses some frames):
      codewords equal on every frame, path metrics within rtol 1e-4;
@@ -55,7 +57,25 @@ Phases:
      (the port's encoder, call sign N0CALL, 1 s of silence either side),
      each decoded byte-exact with the right mode and call sign; B and C
      launched once per decode; then the decode's wall time split into
-     scan, header (demod + OSD), payload demod and list decode.
+     scan, header (demod + OSD), payload demod and list decode;
+ 10. kernel C', make_decoder's options at wire size, each driven with
+     every launch count at 0 just before and read just after:
+     decompose_spc (B at [16, 65536] against its plain version: same
+     recovery, lists, lane order, pm within rtol 1e-4; A at [64, 65536]),
+     rank_select and beta_compact=False (B and C at [16] and [1], A at
+     the serving batch), each array_equal to the default kernel and timed
+     in turns with it; ops_override with 2,048 cycled rows of each opcode
+     class, kernel B against plain at [16], and microseconds a row;
+ 11. the unroll ladder (kernels/unroll.py): A at n = 1024 and 4096, B and
+     C at 1024, generated, built (one nvcc each, together), bit-identical
+     to the interpreter, with build seconds and ms a batch against it;
+     then each kernel's longest rung against its plain version on the
+     same LLRs (codewords equal, pm within rtol 1e-4);
+ 12. the probes D (p256), E (rank3) and F (interleave): each kernel
+     against its plain twin at small R (tolerances in the modules; F's
+     output and its pm each at their own), then the timings at the
+     original probes' R, with F's verdicts (chain, leaf and the narrow
+     width-4 body: single, dual, dual through shared barriers, double).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Prints a
 JSON line of kernel results (each kernel's time, its plain version's,
@@ -67,6 +87,7 @@ when there is no CUDA device, outside a checkout, or if any phase fails.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -78,6 +99,9 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+from modem_tpu_torch.card import cuda_ms, roofline  # noqa: E402
+
 BATCH = 512
 SETS = 4                 # one warm-up batch + three timed batches
 REPEATS = 5              # timed runs over the three batches
@@ -96,8 +120,12 @@ ESC_SIGMA = 0.128        # complex AWGN per component: SC fails on part
 ESC_SEED = 5
 ORACLE_FAST_LOSS = "0.72:52"   # the oracle frame the fast mode loses
 CALL = "N0CALL"
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12
+OVERRIDE_ROWS = 2048     # rows of a per-class override table
+# the unroll ladder in this run: A at both codes, B and C at the
+# shorter (they take 5-10 minutes to build at 4096; PERF.md)
+UNROLL_RUNGS = ((1024, "A"), (1024, "B"), (1024, "C"), (4096, "A"))
+INTERLEAVE_REPS = 2000   # bench/probe_interleave.py's defaults
+WIDTH_REPS = 50000
 
 
 def check(cond, msg: str) -> None:
@@ -159,18 +187,6 @@ def same_lists(a, b) -> int:
                for x, y in zip(a, b))
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of fn over reps calls, CUDA events."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def kernel_vs_plain_ms(kernel, plain, reps: int):
     """(kernel ms, plain ms) in turns: plain, kernel, kernel, plain."""
     kernel()
@@ -193,14 +209,27 @@ def read_golden():
 
 
 def build_all(libraries: dict) -> dict:
-    """Build every kernel library, one nvcc after the other; returns the
-    seconds each took (a failed build raises)."""
-    secs = {}
-    for name, load in libraries.items():
+    """Build every kernel library, one nvcc each, all started together;
+    returns the seconds each took (a failed build raises)."""
+    def one(load):
         t0 = time.perf_counter()
         load()
-        secs[name] = time.perf_counter() - t0
-    return secs
+        return time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        futs = {name: pool.submit(one, load)
+                for name, load in libraries.items()}
+        return {name: f.result() for name, f in futs.items()}
+
+
+def turns_ms(first, second, reps: int):
+    """(first ms, second ms) in turns: first, second, second, first."""
+    first()
+    second()
+    a1 = cuda_ms(first, reps)
+    b1 = cuda_ms(second, reps)
+    b2 = cuda_ms(second, reps)
+    a2 = cuda_ms(first, reps)
+    return (a1 + a2) / 2, (b1 + b2) / 2
 
 
 def kernel_bound(sched, batch: int, lsz: int, exact: bool = True) -> dict:
@@ -237,12 +266,7 @@ def kernel_bound(sched, batch: int, lsz: int, exact: bool = True) -> dict:
             fork_ops += (4 * count[OP_RATE1] + 3 * count[OP_SPC]) * 2 * lsz
     n = sched.code_len
     nbytes = batch * (4 * n + lsz * n + 4 * lsz)
-    total_ops = batch * (lsz * lane_ops + fork_ops)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = total_ops / FP32_OPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "operations": total_ops}
+    return roofline(nbytes, batch * (lsz * lane_ops + fork_ops))
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -262,7 +286,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
     from modem_tpu_torch import bits as B
     from modem_tpu_torch.decoder import Decoder
     from modem_tpu_torch.encoder import Encoder
@@ -275,7 +298,10 @@ def main() -> int:
     from modem_tpu_torch.kernels.scl_decode import (scl_decode,
                                                     scl_decode_reference)
     from modem_tpu_torch.numerology import MODES, make_config
+    from modem_tpu_torch.kernels import unroll
+    from modem_tpu_torch.kernels.scl_decode import make_decoder, variant_name
     from modem_tpu_torch.pipeline import AdaptivePipeline, BatchPipeline
+    from modem_tpu_torch.probes import interleave, p256, rank3
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -289,19 +315,27 @@ def main() -> int:
           "device(s)")
 
     # ---- 2. build ------------------------------------------------------
+    libraries = {
+        "sc_decode": (sc_mod._library, ("sc_decode", ())),
+        "scl_decode": (scl_mod._library, ("scl_decode", ())),
+        "scl_decode options": (lambda: scl_mod._library(True),
+                               ("scl_decode", ("SCL_DECODE_OPTIONS",))),
+        "probe_p256": (p256.library, ("probe_p256", ())),
+        "probe_rank3": (rank3.library, ("probe_rank3", ())),
+        "probe_interleave": (interleave.library, ("probe_interleave", ()))}
     t0 = time.perf_counter()
-    build_s = build_all({"sc_decode": sc_mod._library,
-                         "scl_decode": scl_mod._library})
-    print(f"build: both kernel libraries in {time.perf_counter() - t0:.2f}"
-          " s, one after the other ("
-          + ", ".join(f"{k}.cu {v:.2f} s" for k, v in build_s.items())
-          + "; scl_decode.cu holds kernels B and C)")
-    for name in build_s:
-        log = _build.library_path(name).with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}:", line.strip())
+    build_s = build_all({k: v[0] for k, v in libraries.items()})
+    build_wall = time.perf_counter() - t0
+    print(f"build: {len(build_s)} kernel libraries in {build_wall:.2f} s, "
+          "one nvcc each, started together ("
+          + ", ".join(f"{k} {v:.2f} s" for k, v in build_s.items())
+          + "; scl_decode.cu holds kernels B and C, built again with "
+          "-DSCL_DECODE_OPTIONS for their C' options)")
+    for name, (_load, (src, defines)) in libraries.items():
+        log = _build.library_path(src, defines).with_suffix(".log")
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
 
     # ---- 3. SC kernel vs plain version, noisy wire-size frames ----------
     code = PolarCode(64800, 43072, 16)
@@ -436,9 +470,25 @@ def main() -> int:
                   for i, p in enumerate(payloads))
         check(bad == 0, f"{bad} payloads not byte-exact")
 
+    def reset_counts():
+        sc_decode.launches = scl_decode.launches = 0
+        scl_decode.fast_launches = 0
+        sc_decode.variant_launches.clear()
+        scl_decode.variant_launches.clear()
+        for probe in (p256, rank3, interleave):
+            probe.run.launches.clear()
+
+    def option_counts() -> dict:
+        """Launches of every kernel that is not a default A, B or C: the
+        C' options and the probes."""
+        return {**{f"A+{k}": v for k, v in sc_decode.variant_launches.items()},
+                **dict(scl_decode.variant_launches),
+                **{f"probe {probe.__name__.rsplit('.', 1)[1]} {k}": v
+                   for probe in (p256, rank3, interleave)
+                   for k, v in probe.run.launches.items()}}
+
     torch.cuda.reset_peak_memory_stats()
-    sc_decode.launches = 0
-    scl_decode.launches = 0
+    reset_counts()
     hosts = [pipe.decode_batch(rec_sets[0])]                # warm-up
     fallbacks = pipe.last_fallbacks
     rates = []
@@ -460,6 +510,9 @@ def main() -> int:
         rates.append(BATCH * (SETS - 1) / (time.perf_counter() - t0))
     launches = sc_decode.launches
     serve_scl_launches = scl_decode.launches
+    serve_option_launches = option_counts()
+    check(not any(serve_option_launches.values()),
+          f"the serving path launched {serve_option_launches}")
     for host, payloads in zip(hosts, payload_sets):
         verify(host, payloads)
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -618,8 +671,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     runs = [("golden I/Q", golden, 2, want, 6),
             ("golden mono", golden.real.copy(), 1, want, 6)]
-    sc_decode.launches = scl_decode.launches = 0
-    scl_decode.fast_launches = 0
+    reset_counts()
     dec_rows = []
     t0 = time.perf_counter()
     for ex, dec in decoders.items():
@@ -640,6 +692,8 @@ def main() -> int:
     dec_s = time.perf_counter() - t0
     dec_launches = (sc_decode.launches, scl_decode.launches,
                     scl_decode.fast_launches)
+    check(not any(option_counts().values()),
+          f"the Decoder path launched {option_counts()}")
     print(f"decoder: {len(dec_rows)} recordings byte-exact with the right "
           f"mode and call sign in {dec_s:.2f} s; launches A, B, C "
           f"{dec_launches}: " + "; ".join(
@@ -673,6 +727,384 @@ def main() -> int:
     print("decoder stages, golden recording, median of 5: " + "; ".join(
         f"{k} {v:.2f} ms" for k, v in stage_ms.items()))
 
+    # ---- 10. kernel C': the decoder's options at wire size, mode 6 --------
+    # Each option is a path of its own: driven through make_decoder with
+    # every launch count at 0 just before and read just after (drive), then
+    # held to its plain version or to the default kernel, and timed.  None
+    # of them ran on the main paths above (checked there).
+    options = []
+    llrs16, cw16 = parity_llrs(code, SCL_FRAMES, SCL_SIGMA)
+    llrs16 = llrs16.to(dev)
+    llrs64, _cw64 = parity_llrs(code, PARITY_FRAMES, PARITY_SIGMA)
+    llrs64 = llrs64.to(dev)
+    serve_llrs = llrs             # the main path's SC input, phase 6
+
+    def drive(fn, count, what):
+        """fn() with every launch count at 0 just before; returns (its
+        result, count() just after), which must be positive."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        n = count()
+        check(n > 0, f"{what} launched its kernel no time")
+        return out, n
+
+    def option(name, source, launches, kernel_ms, plain_ms, err, shape,
+               sched_, lsz, exact, **extra):
+        options.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "modem_tpu/kernels/scl_pallas.py:1732",
+            "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            **kernel_bound(sched_, shape[0], lsz, exact),
+            "library_ms": None, "shape": list(shape), **extra})
+
+    # decompose_spc: B at [16, 65536] and A at [64, 65536] on the SPC-free
+    # schedule, each against its plain version
+    dec_b = make_decoder(code.frozen, LIST_SIZE, decompose_spc=True,
+                         device=dev)
+    dsched = dec_b.plan.sched
+    (cw_k, pm_k), n_db = drive(lambda: dec_b(llrs16),
+                               lambda: scl_decode.launches, "decomposed B")
+    cw_r, pm_r = scl_decode_reference(llrs16, dsched, LIST_SIZE, True)
+    torch.cuda.synchronize()
+    check(torch.equal(recovered(cw_k, cw16), recovered(cw_r, cw16)),
+          "decomposed B recovers other frames than its plain version")
+    check(same_lists(cw_k, cw_r) == SCL_FRAMES and torch.equal(cw_k, cw_r),
+          "decomposed B lists or lane order differ from its plain version")
+    check(torch.allclose(pm_k, pm_r, rtol=PM_RTOL, atol=0.0),
+          "decomposed B path metrics differ from its plain version")
+    err_db = float((pm_k - pm_r).abs().max())
+    n_rec = int(recovered(cw_k, cw16).sum())
+    db_ms, db_plain = kernel_vs_plain_ms(
+        lambda: dec_b(llrs16),
+        lambda: scl_decode_reference(llrs16, dsched, LIST_SIZE, True), 3)
+    b_ms, dbk_ms = turns_ms(lambda: scl_decode(llrs16, plan, LIST_SIZE),
+                            lambda: dec_b(llrs16), 3)
+    option("scl_decode+decompose_spc", "modem_tpu_torch/csrc/scl_decode.cu",
+           n_db, dbk_ms, db_plain, err_db, (SCL_FRAMES, code.code_len),
+           dsched, LIST_SIZE, True, rows=dsched.n_ops, default_ms=b_ms,
+           recovered=n_rec)
+    dec_a = make_decoder(code.frozen, 1, decompose_spc=True, device=dev)
+    (cw_k, pm_k), n_da = drive(lambda: dec_a(llrs64),
+                               lambda: sc_decode.launches, "decomposed A")
+    cw_r, pm_r = sc_decode_reference(llrs64, dec_a.plan.sched)
+    check(torch.equal(cw_k, cw_r) and torch.allclose(pm_k, pm_r,
+                                                     rtol=PM_RTOL, atol=0.0),
+          "decomposed A differs from its plain version")
+    da_ms, da_plain = kernel_vs_plain_ms(
+        lambda: dec_a(llrs64),
+        lambda: sc_decode_reference(llrs64, dec_a.plan.sched), 5)
+    option("sc_decode+decompose_spc", "modem_tpu_torch/csrc/sc_decode.cu",
+           n_da, da_ms, da_plain, float((pm_k - pm_r).abs().max()),
+           (PARITY_FRAMES, code.code_len), dec_a.plan.sched, 1, True,
+           rows=dec_a.plan.sched.n_ops)
+    print(f"C' decompose_spc: schedule of {dsched.n_ops} rows (SPC-leaf "
+          f"{plan.sched.n_ops}); B at [{SCL_FRAMES}, 65536] recovers "
+          f"{n_rec}/{SCL_FRAMES}, lists and lane order equal to plain, max "
+          f"|pm diff| {err_db}; {dbk_ms:.3f} ms vs the SPC-leaf B "
+          f"{b_ms:.3f} ms (plain {db_plain:.1f} ms); A at "
+          f"[{PARITY_FRAMES}, 65536] equal to plain, {da_ms:.3f} ms "
+          f"(plain {da_plain:.1f} ms)")
+
+    # rank_select (B; C runs its default code) and f32 betas (A, B, C):
+    # array_equal to the default kernel, and timed in turns with it
+    opt_sets = ({"rank_select": True}, {"beta_compact": False},
+                {"rank_select": True, "beta_compact": False})
+    decs = {(exact, i): make_decoder(code.frozen, LIST_SIZE, exact,
+                                     device=dev, **opts)
+            for exact in (True, False) for i, opts in enumerate(opt_sets)}
+
+    def list_count(vname):
+        if vname in ("B", "C"):
+            return (scl_decode.launches if vname == "B"
+                    else scl_decode.fast_launches)
+        return scl_decode.variant_launches[vname]
+
+    done = set()
+    for n_frames in (SCL_FRAMES, 1):
+        x = llrs16[:n_frames].contiguous()
+        for exact, kname in ((True, "B"), (False, "C")):
+            want = scl_decode(x, plan, LIST_SIZE, exact)
+            # the plain versions the variants are held to: the default one
+            # (f32 betas change nothing there) and, for B, the rank path
+            plain_out, plain_t = {}, {}
+            for rank in ((False, True) if exact else (False,)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plain_out[rank] = scl_decode_reference(
+                    x, plan.sched, LIST_SIZE, exact, rank_select=rank)
+                torch.cuda.synchronize()
+                plain_t[rank] = (time.perf_counter() - t0) * 1e3
+            for i, opts in enumerate(opt_sets):
+                dec = decs[exact, i]
+                vname = variant_name(exact, **opts)
+                got, n_v = drive(lambda: dec(x), lambda: list_count(vname),
+                                 f"{kname} with {opts}")
+                check(torch.equal(got[0], want[0])
+                      and torch.equal(got[1], want[1]),
+                      f"{kname} with {opts} differs from the default at "
+                      f"[{n_frames}, 65536]")
+                rank = exact and opts.get("rank_select", False)
+                ref = plain_out[rank]
+                check(torch.equal(got[0], ref[0]) and torch.allclose(
+                    got[1], ref[1], rtol=PM_RTOL, atol=0.0),
+                    f"{kname} with {opts} differs from its plain version at "
+                    f"[{n_frames}, 65536]")
+                err = float((got[1] - ref[1]).abs().max())
+                if vname == kname or (vname, n_frames) in done:
+                    continue          # C: rank_select is its default code
+                done.add((vname, n_frames))
+                d_ms, v_ms = turns_ms(
+                    lambda: scl_decode(x, plan, LIST_SIZE, exact),
+                    lambda: dec(x), 3)
+                key = f"scl_decode[{vname}]"
+                if n_frames == SCL_FRAMES:
+                    option(key, "modem_tpu_torch/csrc/scl_decode.cu", n_v,
+                           v_ms, plain_t[rank], err,
+                           (n_frames, code.code_len), plan.sched, LIST_SIZE,
+                           exact, default_ms=d_ms)
+                else:
+                    entry = next(o for o in options if o["name"] == key)
+                    entry.update(ms_1=v_ms, default_ms_1=d_ms,
+                                 plain_ms_1=plain_t[rank],
+                                 max_abs_err=max(entry["max_abs_err"], err),
+                                 bound_ms_1=kernel_bound(plan.sched, 1,
+                                                         LIST_SIZE,
+                                                         exact)["bound_ms"])
+    dec_af = make_decoder(code.frozen, 1, beta_compact=False, device=dev)
+    got, n_af = drive(lambda: dec_af(serve_llrs),
+                      lambda: sc_decode.variant_launches["beta_f32"],
+                      "A with f32 betas")
+    want = sc_decode(serve_llrs, plan)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "A with f32 betas differs from the default")
+    check(torch.equal(got[0], cw_plain) and torch.allclose(
+        got[1], pm_plain, rtol=PM_RTOL, atol=0.0),
+        "A with f32 betas differs from its plain version")
+    a_ms, af_ms = turns_ms(lambda: sc_decode(serve_llrs, plan),
+                           lambda: dec_af(serve_llrs), 5)
+    option("sc_decode[A+beta_f32]", "modem_tpu_torch/csrc/sc_decode.cu", n_af,
+           af_ms, plain_ms, float((got[1] - pm_plain).abs().max()),
+           (BATCH, code.code_len), plan.sched, 1, True, default_ms=a_ms)
+    print("C' rank_select / f32 betas: equal to the default kernels and to "
+          f"their plain versions at [{SCL_FRAMES}] and [1] (A at "
+          f"[{BATCH}]); ms (default ms) "
+          "at [16] / [1]: " + "; ".join(
+              f"{o['name']} {o['ms']:.3f} ({o['default_ms']:.3f})"
+              + (f" / {o['ms_1']:.3f} ({o['default_ms_1']:.3f})"
+                 if "ms_1" in o else "") for o in options
+              if o["name"].startswith(("scl_decode[", "sc_decode["))))
+
+    # ops_override: per opcode class of the mode-6 schedule, 2,048 cycled
+    # copies of its rows; B against its plain version at [16]
+    op_names = ("F", "G", "COMBINE", "RATE0", "REP", "RATE1", "SPC")
+    per_row_us = {}
+    for op in range(len(op_names)):
+        rows = plan.sched.ops[plan.sched.ops[:, 0] == op]
+        table = np.tile(rows, (OVERRIDE_ROWS // len(rows) + 1, 1))
+        table = table[:OVERRIDE_ROWS]
+        dec = make_decoder(code.frozen, LIST_SIZE, ops_override=table,
+                           device=dev)
+        (cw_k, pm_k), n_o = drive(lambda: dec(llrs16),
+                                  lambda: scl_decode.launches,
+                                  f"the override of {op_names[op]} rows")
+        t0 = time.perf_counter()
+        cw_r, pm_r = scl_decode_reference(llrs16, dec.plan.sched, LIST_SIZE,
+                                          True)
+        torch.cuda.synchronize()
+        o_plain = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(cw_k, cw_r) and torch.allclose(
+            pm_k, pm_r, rtol=PM_RTOL, atol=0.0),
+            f"override of {op_names[op]} rows: kernel differs from plain")
+        o_ms = cuda_ms(lambda: dec(llrs16), 3)
+        per_row_us[op_names[op]] = o_ms * 1e3 / OVERRIDE_ROWS
+        option(f"scl_decode[override {op_names[op]}]",
+               "modem_tpu_torch/csrc/scl_decode.cu", n_o, o_ms, o_plain,
+               float((pm_k - pm_r).abs().max()), (SCL_FRAMES, code.code_len),
+               dec.plan.sched, LIST_SIZE, True, rows=OVERRIDE_ROWS,
+               us_per_row=per_row_us[op_names[op]])
+    print(f"C' ops_override: {OVERRIDE_ROWS} cycled rows a class, kernel B "
+          f"equal to plain at [{SCL_FRAMES}, 65536]; us a row (16 frames): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in per_row_us.items()))
+    print("C' launches, each option's own drive: " + ", ".join(
+        f"{o['name']} {o['launches']}" for o in options))
+
+    # ---- 11. the unroll ladder -------------------------------------------
+    t0 = time.perf_counter()
+    ladder = unroll.ladder(UNROLL_RUNGS, dev)
+    print(f"unroll ladder ({time.perf_counter() - t0:.1f} s in all):")
+    for row in ladder:
+        print(f"  n={row['size']} {row['kernel']} ({row['rows']} rows, "
+              f"batch {row['batch']}): build {row['build_s']:.1f} s, "
+              f"unrolled {row['ms_unrolled']:.3f} ms vs interpreter "
+              f"{row['ms_interpreter']:.3f} ms, bit-identical "
+              f"{row['identical']}")
+    for row in ladder:
+        if row["size"] != max(r["size"] for r in ladder
+                              if r["kernel"] == row["kernel"]):
+            continue          # each kernel's entry: its longest code
+        ucode = PolarCode(*unroll.CODES[row["size"]])
+        uplan = ScPlan.from_frozen(ucode.frozen)
+        lsz, exact, batch = unroll.KERNELS[row["kernel"]]
+        x = torch.from_numpy(np.random.default_rng(0).normal(
+            2.0, 1.0, (batch, uplan.sched.code_len)).astype(
+                np.float32)).to(dev)
+        udec = make_decoder(ucode.frozen, lsz, exact, unroll=True,
+                            device=dev)
+        if lsz == 1:
+            (cw_u, pm_u), n_u = drive(
+                lambda: udec(x), lambda: sc_decode.variant_launches["unroll"],
+                "unrolled A")
+
+            def u_ref():
+                return sc_decode_reference(x, uplan.sched)
+        else:
+            vname = variant_name(exact, unroll=True)
+            (cw_u, pm_u), n_u = drive(
+                lambda: udec(x), lambda: scl_decode.variant_launches[vname],
+                f"unrolled {row['kernel']}")
+
+            def u_ref():
+                return scl_decode_reference(x, uplan.sched, lsz, exact)
+        # the unrolled kernel against the plain version on the same LLRs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cw_r, pm_r = u_ref()
+        torch.cuda.synchronize()
+        u_plain = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(cw_u, cw_r) and torch.allclose(
+            pm_u, pm_r, rtol=PM_RTOL, atol=0.0),
+            f"unrolled {row['kernel']} at n={row['size']} differs from its "
+            "plain version")
+        name = "sc_decode" if lsz == 1 else "scl_decode"
+        option(f"{name}[{row['kernel']}+unroll]",
+               f"modem_tpu_torch/csrc/{name}.cu (kernels/unroll.py)", n_u,
+               row["ms_unrolled"], u_plain,
+               float((pm_u - pm_r).abs().max()),
+               (batch, uplan.sched.code_len), uplan.sched, lsz, exact,
+               interpreter_ms=row["ms_interpreter"], build_s=row["build_s"],
+               ladder=[r for r in ladder if r["kernel"] == row["kernel"]])
+    print("unroll at wire size: not run (its build ran out of the "
+          "machine's memory; PERF.md), and the pipelines refuse "
+          "scl_unroll=True on a schedule of more than "
+          f"{unroll.MAX_ROWS} rows on the card")
+
+    # ---- 12. probes D, E, F ----------------------------------------------
+    # each held to its plain twin at small R first, then its timing run is
+    # the drive (counts at 0 just before, read just after)
+    t0 = time.perf_counter()
+    d_err = p256.check(dev)
+    d_times, _ = drive(lambda: p256.timings(dev),
+                       lambda: sum(p256.run.launches.values()), "probe D")
+    d_launches = dict(p256.run.launches)
+    for k, body in enumerate(p256.BODIES):
+        check(d_launches.get(body, 0) > 0, f"probe D {body} never launched")
+        (ms128, pl128), (ms256, pl256) = (d_times[body, P]
+                                          for P in p256.PS)
+        options.append({
+            "name": f"probe_p256[{body}]", "route": "cuda",
+            "source": "modem_tpu_torch/csrc/probe_p256.cu",
+            "replaces": "bench/probe_p256.py:45",
+            "launches": d_launches[body],
+            "max_abs_err": d_err[body], "ms": ms128, "plain_ms": pl128,
+            **p256.bound(body, 128, p256.R), "library_ms": None,
+            "shape": [128, p256.COLS], "reps": p256.R,
+            "us_per_iter": ms128 * 1e3 / p256.R, "ms_256": ms256,
+            "plain_ms_256": pl256,
+            "bound_ms_256": p256.bound(body, 256, p256.R)["bound_ms"],
+            "ratio_256_128": ms256 / ms128})
+        print(f"probe D {p256.LABELS[k]:34s}: P=128 "
+              f"{ms128 * 1e3 / p256.R:.3f} us/iter, P=256 "
+              f"{ms256 * 1e3 / p256.R:.3f} us/iter, ratio "
+              f"{ms256 / ms128:.2f}x (plain twin {pl128 * 1e3 / p256.R:.2f} "
+              f"/ {pl256 * 1e3 / p256.R:.2f} us/iter)")
+    x_e = rank3.inputs()
+    xt_e = torch.from_numpy(x_e).to(dev)
+    e_err = {}
+    for kind in rank3.KINDS:
+        e_err[kind] = rank3.check_one(kind, rank3.run(kind, xt_e), x_e)
+        rank3.check_one(kind, rank3.plain(kind, xt_e), x_e)
+    e_ms, _ = drive(lambda: {kind: cuda_ms(lambda: rank3.run(kind, xt_e), 100)
+                             for kind in rank3.KINDS},
+                    lambda: sum(rank3.run.launches.values()), "probe E")
+    e_launches = dict(rank3.run.launches)
+    for kind in rank3.KINDS:
+        check(e_launches.get(kind, 0) > 0, f"probe E {kind} never launched")
+        e_plain = cuda_ms(lambda: rank3.plain(kind, xt_e), 100)
+        options.append({
+            "name": f"probe_rank3[{kind}]", "route": "cuda",
+            "source": "modem_tpu_torch/csrc/probe_rank3.cu",
+            "replaces": "bench/probe_rank3.py:33",
+            "launches": e_launches[kind], "max_abs_err": e_err[kind],
+            "ms": e_ms[kind], "plain_ms": e_plain, **rank3.bound(kind),
+            "library_ms": None, "shape": [rank3.P, rank3.C]})
+        print(f"probe E {kind}: kernel and twin equal to numpy (kernel max "
+              f"diff {e_err[kind]}); {e_ms[kind] * 1e3:.2f} us a launch, "
+              f"plain twin {e_plain * 1e3:.2f} us")
+    f_err = interleave.check(dev)
+    reps = INTERLEAVE_REPS
+    f_t, _ = drive(lambda: interleave.timings(reps, WIDTH_REPS, dev),
+                   lambda: sum(interleave.run.launches.values()), "probe F")
+    f_launches = dict(interleave.run.launches)
+    x_f = interleave.inputs(1).to(dev)
+    x_w = interleave.inputs(1, 256, 1).to(dev)
+    x_n = interleave.inputs(1, interleave.NARROW).to(dev)
+    f_rows = (  # body, replaced site, [P, W], reps, plain twin
+        ("chain", ":107", 128, reps,
+         lambda: interleave.run_plain("chain", x_f, 1, reps)),
+        ("leaf", ":107", 128, reps,
+         lambda: interleave.run_plain("leaf", x_f, 1, reps)),
+        ("narrow", ":177", interleave.NARROW, WIDTH_REPS,
+         lambda: interleave.run_width_plain(x_n, interleave.NARROW,
+                                            WIDTH_REPS)))
+    for body, site, width, r, plain in f_rows:
+        for key in (body, f"{body}_shared"):
+            check(key == "chain_shared" or f_launches.get(key, 0) > 0,
+                  f"probe F {key} never launched")
+        t = f_t[body]
+        f_plain = cuda_ms(plain, 1)
+        entry = {
+            "name": f"probe_interleave[{body}]", "route": "cuda",
+            "source": "modem_tpu_torch/csrc/probe_interleave.cu",
+            "replaces": f"bench/probe_interleave.py{site}",
+            "launches": f_launches[body] + f_launches.get(f"{body}_shared", 0),
+            "max_abs_err": f_err, "ms": t["single"], "plain_ms": f_plain,
+            **interleave.bound("width" if body == "narrow" else body, 1, r,
+                               width),
+            "library_ms": None, "shape": [interleave.P, width], "reps": r,
+            "dual_ms": t["dual"], "double_ms": t["double"],
+            "verdict": interleave.verdict(t["single"], t["dual"],
+                                          t["double"])}
+        if "shared" in t:
+            entry.update(shared_dual_ms=t["shared"],
+                         shared_verdict=interleave.verdict(
+                             t["single"], t["shared"], t["double"]))
+        options.append(entry)
+        print(f"probe F, {r} reps, plain twin single {f_plain:.1f} ms: "
+              + interleave.report(body, t))
+    check(f_launches.get("width", 0) > 0, "probe F width never launched")
+    w_ms = f_t["width"]
+    w_plain = cuda_ms(lambda: interleave.run_width_plain(x_w, 128, WIDTH_REPS),
+                      1)
+    options.append({
+        "name": "probe_interleave[width]", "route": "cuda",
+        "source": "modem_tpu_torch/csrc/probe_interleave.cu",
+        "replaces": "bench/probe_interleave.py:177",
+        "launches": f_launches["width"], "max_abs_err": f_err,
+        "ms": w_ms[128], "plain_ms": w_plain,
+        **interleave.bound("width", 1, WIDTH_REPS), "library_ms": None,
+        "shape": [interleave.P, 128], "reps": WIDTH_REPS,
+        "ms_256": w_ms[256],
+        "bound_ms_256": interleave.bound("width", 1, WIDTH_REPS,
+                                         256)["bound_ms"]})
+    print(f"probe F width: 128 {w_ms[128]:.3f} ms, 256 {w_ms[256]:.3f} ms "
+          f"({w_ms[256] / w_ms[128]:.2f}x) at {WIDTH_REPS} reps (plain twin "
+          f"at 128 {w_plain:.1f} ms); probes in {time.perf_counter() - t0:.1f}"
+          " s")
+    print("probe launches, each probe's timing run: D "
+          f"{d_launches}, E {e_launches}, F {f_launches}")
+
     sched = plan.sched
     kernels = [
         {"name": "sc_decode", "route": "cuda",
@@ -703,7 +1135,7 @@ def main() -> int:
          "library_ms": None, "shape": [FALLBACK_BATCH, sched.code_len],
          "ms_1": list_ms["C", 1][0], "plain_ms_1": list_ms["C", 1][1],
          "bound_ms_1": kernel_bound(sched, 1, LIST_SIZE, False)["bound_ms"],
-         "escalation_launches": esc_c_launches[2]}]
+         "escalation_launches": esc_c_launches[2]}] + options
     for k in kernels:
         print(f"bound {k['name']} at {k['shape']}: {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}: {k['bytes']} bytes, {k['operations']} "
@@ -716,7 +1148,8 @@ def main() -> int:
         "oracle_agree": oracle_agree, "escalated": escalated,
         "escalation_recovered": saved, "escalation_recovered_fast": saved_c,
         "escalation_ms": esc_ms, "decoder_s": dec_s,
-        "decoder_stage_ms": stage_ms}))
+        "decoder_stage_ms": stage_ms, "override_us_per_row": per_row_us,
+        "unroll_ladder": ladder}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,10 @@ Counterpart of ``modem_tpu/kernels/scl_pallas.make_pallas_decoder(
 frozen, list_size=1, exact=True)``: both run the raw schedule of
 :func:`fec.schedule.build_schedule` (SPC leaves), and both return the
 JAX shapes, codewords [B, 1, code_len] uint8 and path metrics [B, 1]
-f32, so the CRC select downstream is the list decoder's.
+f32, so the CRC select downstream is the list decoder's.  Its options
+(part of kernel C'): f32 partial sums (``beta_compact=False``, the
+counterpart of ``beta_bf16=False``) and the schedule expanded into
+straight-line code (``unroll=True``, kernels/unroll.py).
 
 :func:`sc_decode` is the wrapper the pipeline calls.  A CUDA tensor
 launches the kernel (or raises); a CPU tensor takes
@@ -15,6 +18,7 @@ vectorised over the batch.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -37,9 +41,12 @@ class ScPlan:
     _tables: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
-    def from_frozen(cls, frozen: np.ndarray) -> "ScPlan":
+    def from_frozen(cls, frozen: np.ndarray, emit_spc: bool = True
+                    ) -> "ScPlan":
+        """The schedule of a frozen mask: SPC leaves, or with
+        ``emit_spc=False`` SPC nodes decomposed into subtrees."""
         key = np.ascontiguousarray(frozen, dtype=np.uint8).tobytes()
-        return cls(build_schedule(key, emit_spc=True))
+        return cls(build_schedule(key, emit_spc=emit_spc))
 
     def table(self, device: torch.device) -> torch.Tensor:
         """int32 [n_ops, 14] instruction table on ``device``."""
@@ -109,7 +116,7 @@ def sc_decode_reference(llrs: torch.Tensor, sched: Schedule):
 def _library() -> ctypes.CDLL:
     lib = _build.load("sc_decode")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sc_decode_launch.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p,
+    lib.sc_decode_launch.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p, p,
                                      i, p]
     lib.sc_decode_launch.restype = ctypes.c_int
     lib.sc_decode_error_string.argtypes = [ctypes.c_int]
@@ -117,14 +124,8 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def sc_decode(llrs: torch.Tensor, plan: ScPlan):
-    """SC-decode a batch: llrs [B, code_len] contiguous f32 ->
-    (codewords [B, 1, code_len] uint8, path metrics [B, 1] f32).
-
-    On a CUDA tensor this launches the kernel on the current stream
-    (counted in ``sc_decode.launches``) and raises if the launch fails;
-    on a CPU tensor it runs :func:`sc_decode_reference`."""
-    sched = plan.sched
+def check_llrs(llrs: torch.Tensor, sched: Schedule, name: str) -> None:
+    """Raise on LLRs the kernels do not take."""
     if llrs.dtype != torch.float32:
         raise TypeError(f"llrs must be float32, got {llrs.dtype}")
     if llrs.dim() != 2 or llrs.shape[1] != sched.code_len:
@@ -132,33 +133,71 @@ def sc_decode(llrs: torch.Tensor, plan: ScPlan):
                          f"[batch, {sched.code_len}]")
     if not llrs.is_contiguous():
         raise ValueError("llrs must be contiguous")
+    if llrs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {llrs.device}")
+
+
+def sc_decode(llrs: torch.Tensor, plan: ScPlan, *, beta_compact: bool = True,
+              unroll: bool = False, zero_scratch: bool = False):
+    """SC-decode a batch: llrs [B, code_len] contiguous f32 ->
+    (codewords [B, 1, code_len] uint8, path metrics [B, 1] f32).
+
+    ``beta_compact=False`` keeps the kernel's partial sums in f32 instead
+    of int8, ``unroll=True`` runs the kernel generated for this schedule
+    (kernels/unroll.py; int8 partial sums only), and ``zero_scratch``
+    zero-fills the scratch first (an override table may read slots it
+    never wrote; the plain version starts from zeros).  The results are
+    the same either way.
+
+    On a CUDA tensor this launches the kernel on the current stream
+    (counted in ``sc_decode.launches`` for the default instance,
+    ``sc_decode.variant_launches[name]`` for the others) and raises if
+    the launch fails; on a CPU tensor it runs :func:`sc_decode_reference`."""
+    sched = plan.sched
+    check_llrs(llrs, sched, "sc_decode")
+    if unroll and not beta_compact:
+        raise ValueError("only the int8-beta instance is unrolled")
     if llrs.device.type == "cpu":
         return sc_decode_reference(llrs, sched)
-    if llrs.device.type != "cuda":
-        raise ValueError(f"sc_decode runs on cpu or cuda, not {llrs.device}")
 
-    lib = _library()
     batch, n = llrs.shape
     dev = llrs.device
     llr_len = sched.sz_llr - sched.d0_len
-    llr_scratch = torch.empty(batch, llr_len, dtype=torch.float32,
-                              device=dev)
-    beta_scratch = torch.empty(batch, sched.sz_beta, dtype=torch.int8,
-                               device=dev)
+    alloc = torch.zeros if zero_scratch else torch.empty
+    llr_scratch = alloc(batch, llr_len, dtype=torch.float32, device=dev)
+    beta_scratch = alloc(batch, sched.sz_beta,
+                         dtype=torch.int8 if beta_compact else torch.float32,
+                         device=dev)
     cw = torch.empty(batch, 1, n, dtype=torch.uint8, device=dev)
     pm = torch.empty(batch, 1, dtype=torch.float32, device=dev)
-    table = plan.table(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.sc_decode_launch(
-        llrs.data_ptr(), table.data_ptr(), sched.n_ops, n, sched.d0_len,
-        llr_len, sched.sz_beta, sched.out_off, llr_scratch.data_ptr(),
-        beta_scratch.data_ptr(), cw.data_ptr(), pm.data_ptr(), batch,
-        stream)
+    if unroll:
+        from . import unroll as _unroll
+        lib = _unroll.library(sched, 1, True)
+        rc = lib.unrolled_launch(llrs.data_ptr(), llr_scratch.data_ptr(),
+                                 beta_scratch.data_ptr(), cw.data_ptr(),
+                                 pm.data_ptr(), batch, stream)
+        err = lib.unrolled_error_string
+    else:
+        lib = _library()
+        table = plan.table(dev)
+        rc = lib.sc_decode_launch(
+            llrs.data_ptr(), table.data_ptr(), sched.n_ops, n, sched.d0_len,
+            llr_len, sched.sz_beta, sched.out_off, int(not beta_compact),
+            llr_scratch.data_ptr(), beta_scratch.data_ptr(), cw.data_ptr(),
+            pm.data_ptr(), batch, stream)
+        err = lib.sc_decode_error_string
     if rc:
         raise RuntimeError("sc_decode kernel launch failed: "
-                           + lib.sc_decode_error_string(rc).decode())
-    sc_decode.launches += 1
+                           + err(rc).decode())
+    if unroll:
+        sc_decode.variant_launches["unroll"] += 1
+    elif not beta_compact:
+        sc_decode.variant_launches["beta_f32"] += 1
+    else:
+        sc_decode.launches += 1
     return cw, pm
 
 
-sc_decode.launches = 0
+sc_decode.launches = 0                           # kernel A
+sc_decode.variant_launches = collections.Counter()   # its C' options

@@ -35,11 +35,17 @@ from . import bits as B
 from . import fft, ofdm, track
 from .fec.polar import PolarCode
 from .fec.schedule import Schedule
+from .kernels import unroll
 from .kernels.sc_decode import ScPlan, sc_decode
 from .kernels.scl_decode import LIST_SIZES, scl_decode
 from .numerology import MODES, ModemConfig
 from .state import build_state
 from .sync import Synchronizer, slice_windows
+
+# default for scl_unroll=None: whether the polar decoders run the kernel
+# generated for the schedule (kernels/unroll.py: every row straight-line
+# code, no table, no opcode dispatch) instead of the interpreter
+SCL_UNROLL_DEFAULT = False
 
 
 def as_recordings(recordings, device) -> torch.Tensor:
@@ -68,12 +74,19 @@ class BatchPipeline:
     ``schedule``, ``crc_matrix`` and ``mls0_kernel`` (default:
     :func:`state.build_state`).  sync_stride: evaluate the coarse timing
     metric every N samples where the numerology divides cleanly
-    (Synchronizer.stride_ok), else at full rate."""
+    (Synchronizer.stride_ok), else at full rate.  scl_unroll: True runs
+    the polar kernel the list size picks (A, B or C) as generated for
+    this schedule (kernels/unroll.py, built at first use), None follows
+    :data:`SCL_UNROLL_DEFAULT`; the result is the same, and the plain CPU
+    path has no unroll.  True raises ValueError on a schedule longer
+    than ``unroll.MAX_ROWS`` (every wire-size mode): no such build has
+    been seen to end, and the wire-size one ran out of host memory."""
 
     def __init__(self, rate: int, oper_mode: int, list_size: int = 8,
                  mode_spec=None, symbol_len_override=None,
                  scl_exact: bool = True, mls_convention: str = "galois",
-                 sync_stride: int = 8, device="cuda", state=None):
+                 sync_stride: int = 8, device="cuda", state=None,
+                 scl_unroll: bool | None = None):
         if list_size != 1 and list_size not in LIST_SIZES:
             raise NotImplementedError(
                 f"the port decodes with list_size 1 or {LIST_SIZES}")
@@ -95,11 +108,15 @@ class BatchPipeline:
         self.state = state
         self.list_size = list_size
         self.scl_exact = scl_exact
+        self.scl_unroll = (SCL_UNROLL_DEFAULT if scl_unroll is None
+                           else bool(scl_unroll))
         frozen = state.frozen.cpu().numpy()
         self.code = PolarCode(n=mode.cons_bits, k=mode.crc_bits,
                               order=mode.code_order, frozen=frozen)
         self.plan = ScPlan(Schedule.from_table(state.schedule.cpu().numpy(),
                                                self.code.code_len))
+        if self.scl_unroll:
+            unroll.check_rows(self.plan.sched)
         self.crc_mat = state.crc_matrix.to(self.device)
         self.sync = Synchronizer(cfg, self.device, state.mls0_kernel)
         self.sync_stride = (sync_stride
@@ -188,11 +205,12 @@ class BatchPipeline:
         (decode.cc:530-555, batched)."""
         mode = self.cfg.mode
         if self.list_size == 1:
-            codewords, pm = sc_decode(front["llrs"], self.plan)
+            codewords, pm = sc_decode(front["llrs"], self.plan,
+                                      unroll=self.scl_unroll)
         else:
             codewords, pm = scl_decode(front["llrs"], self.plan,
-                                       self.list_size,
-                                       self.scl_exact)       # [B, L, n]
+                                       self.list_size, self.scl_exact,
+                                       unroll=self.scl_unroll)  # [B, L, n]
         info = codewords[..., self._crc_idx]                 # [B, L, k]
         rem = torch.remainder(info.to(torch.float32) @ self.crc_mat, 2.0)
         crc_ok = rem.sum(dim=-1) == 0                        # [B, L]
@@ -275,7 +293,8 @@ class AdaptivePipeline:
     verbatim.  So every result key equals ``BatchPipeline(list_size=
     list_size)``'s, except on a frame whose greedy SC path passes its CRC
     but falls out of the list.  The two sub-pipelines share one
-    :class:`state.PipelineState`.
+    :class:`state.PipelineState`; ``scl_unroll`` in ``kw`` applies to
+    both kernels.
 
     ``decode_batch`` returns the host dict of :meth:`BatchPipeline.
     fetch` (the CRC gate is a host decision); the pair
@@ -348,15 +367,19 @@ class AdaptivePipeline:
 
 @functools.lru_cache(maxsize=None)
 def cached_pipeline(rate: int, oper_mode: int, list_size: int = 8,
-                    mls_convention: str = "galois",
-                    device: str = "cuda") -> BatchPipeline:
+                    mls_convention: str = "galois", device: str = "cuda",
+                    scl_unroll: bool | None = None) -> BatchPipeline:
     return BatchPipeline(rate, oper_mode, list_size,
-                         mls_convention=mls_convention, device=device)
+                         mls_convention=mls_convention, device=device,
+                         scl_unroll=scl_unroll)
 
 
 @functools.lru_cache(maxsize=None)
 def cached_adaptive_pipeline(rate: int, oper_mode: int, list_size: int = 8,
                              mls_convention: str = "galois",
-                             device: str = "cuda") -> AdaptivePipeline:
+                             device: str = "cuda",
+                             scl_unroll: bool | None = None
+                             ) -> AdaptivePipeline:
     return AdaptivePipeline(rate, oper_mode, list_size,
-                            mls_convention=mls_convention, device=device)
+                            mls_convention=mls_convention, device=device,
+                            scl_unroll=scl_unroll)

@@ -23,10 +23,11 @@ from modem_tpu_torch.encoder import Encoder
 from modem_tpu_torch.fec.polar import PolarCode
 from modem_tpu_torch.kernels.sc_decode import (ScPlan, sc_decode,
                                                sc_decode_reference)
-from modem_tpu_torch.kernels.scl_decode import (scl_decode,
+from modem_tpu_torch.kernels.scl_decode import (make_decoder, scl_decode,
                                                 scl_decode_reference)
 from modem_tpu_torch.numerology import toy_config
 from modem_tpu_torch.pipeline import AdaptivePipeline, BatchPipeline
+from modem_tpu_torch.probes import interleave, p256, rank3
 
 # (n, k, order, sigma) as tests/test_torch_sc_decode.py and
 # tests/test_torch_scl_decode.py
@@ -228,3 +229,123 @@ def test_decoder_golden_on_card(cuda_device, scl_exact, channels):
     assert got.ok and got.payload == want.payload == want_payload
     for key in ("oper_mode", "call_sign", "symbol_pos", "bit_flips"):
         assert getattr(got, key) == getattr(want, key), key
+
+
+# -- kernel C' (the options of the decoder) and the probes D-F ---------------
+
+def _class_table(sched, op, rows=64):
+    """``rows`` cycled copies of the schedule's rows of opcode ``op``."""
+    sel = sched.ops[sched.ops[:, 0] == op]
+    return np.tile(sel, (rows // len(sel) + 1, 1))[:rows]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CODES))
+@pytest.mark.parametrize("lsz", [2, 4, 8])
+def test_rank_select_and_f32_betas_equal_default(cuda_device, name, lsz):
+    """rank_select (kernel B) and beta_compact=False (B and C): the same
+    codewords, lane order and path metrics as the default kernel, bit for
+    bit, and the same lists as the plain rank-select version."""
+    code, llrs = noisy_llrs(*CODES[name])
+    plan = ScPlan.from_frozen(code.frozen)
+    x = llrs.to(cuda_device)
+    for exact in (True, False):
+        want = scl_decode(x, plan, lsz, exact)
+        for opts in ({"rank_select": True}, {"beta_compact": False},
+                     {"rank_select": True, "beta_compact": False}):
+            got = scl_decode(x, plan, lsz, exact, **opts)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+        cw_r, _ = scl_decode_reference(x, plan.sched, lsz, exact,
+                                       rank_select=True)
+        assert torch.equal(cw_r, want[0])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CODES))
+def test_sc_f32_betas_equal_default(cuda_device, name):
+    """Kernel A with f32 partial sums equals the default bit for bit."""
+    code, llrs = noisy_llrs(*CODES[name])
+    plan = ScPlan.from_frozen(code.frozen)
+    x = llrs.to(cuda_device)
+    got, want = sc_decode(x, plan, beta_compact=False), sc_decode(x, plan)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CODES))
+@pytest.mark.parametrize("lsz", [1, 8])
+def test_decompose_spc_kernel_matches_plain(cuda_device, name, lsz):
+    """The decomposed-SPC schedule (leaves down to width 1, BIG columns
+    and inf sums) through kernel A (L = 1) or B: codewords in the same
+    lane order as the plain version's, path metrics within rtol 1e-5,
+    atol 1e-3."""
+    code, llrs = noisy_llrs(*CODES[name])
+    dec = make_decoder(code.frozen, lsz, decompose_spc=True,
+                       device=cuda_device)
+    plain = make_decoder(code.frozen, lsz, decompose_spc=True, device="cpu")
+    cw, pm = dec(llrs)
+    cw_r, pm_r = plain(llrs)
+    assert torch.equal(cw.cpu(), cw_r)
+    assert torch.allclose(pm.cpu(), pm_r, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lsz", [1, 8])
+def test_ops_override_kernel_matches_plain(cuda_device, lsz):
+    """An override table of each opcode class's rows, cycled: the kernel
+    (scratch zero-filled) equals the plain version (zeros) on codewords
+    and, within rtol 1e-5, atol 1e-3, path metrics."""
+    code, llrs = noisy_llrs(*CODES["chunked"])
+    sched = ScPlan.from_frozen(code.frozen).sched
+    for op in sorted(set(sched.ops[:, 0].tolist())):
+        table = _class_table(sched, op)
+        dec = make_decoder(code.frozen, lsz, ops_override=table,
+                           device=cuda_device)
+        cw, pm = dec(llrs)
+        cw_r, pm_r = make_decoder(code.frozen, lsz, ops_override=table,
+                                  device="cpu")(llrs)
+        assert torch.equal(cw.cpu(), cw_r), op
+        assert torch.allclose(pm.cpu(), pm_r, rtol=1e-5, atol=1e-3), op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["narrow", "toy"])
+@pytest.mark.parametrize("lsz,exact", [(1, True), (8, True), (4, False)])
+def test_unrolled_kernel_equals_interpreter(cuda_device, name, lsz, exact):
+    """The kernel generated for the schedule (unroll=True) equals the
+    interpreter bit for bit, and counts its launch as the unroll
+    variant."""
+    code, llrs = noisy_llrs(*CODES[name])
+    kw = dict(device=cuda_device, exact=exact)
+    got = make_decoder(code.frozen, lsz, unroll=True, **kw)(llrs)
+    want = make_decoder(code.frozen, lsz, **kw)(llrs)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_probe_p256_matches_twin(cuda_device):
+    """Probe D: each body's kernel against its plain twin at R = 4, P =
+    128 and 256, at p256.RTOL."""
+    p256.check(cuda_device)
+
+
+@pytest.mark.cuda
+def test_probe_rank3_matches_numpy(cuda_device):
+    """Probe E: each computation's kernel against the probe's numpy
+    expectation (exact, slot extract atol 1e-5)."""
+    x = rank3.inputs()
+    xt = torch.from_numpy(x).to(cuda_device)
+    for kind in rank3.KINDS:
+        rank3.check_one(kind, rank3.run(kind, xt), x)
+
+
+@pytest.mark.cuda
+def test_probe_interleave_matches_twin(cuda_device):
+    """Probe F: chain and leaf, one and two chains (the leaf's also
+    through shared barriers), the width probe at 128 and 256 and the
+    narrow width-4 body at one and two chains, kernel against twin at 8
+    iterations: the output within rtol 1e-5, atol 1e-3, and pm on its
+    own within rtol 1e-5."""
+    interleave.check(cuda_device)

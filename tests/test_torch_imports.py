@@ -29,7 +29,11 @@ def test_every_module_is_listed():
                  "modem_tpu_torch.kernels.scl_decode",
                  "modem_tpu_torch.fec.schedule",
                  "modem_tpu_torch.decoder", "modem_tpu_torch.dsp",
-                 "modem_tpu_torch.fec.osd", "modem_tpu_torch.fec.scl_np"):
+                 "modem_tpu_torch.fec.osd", "modem_tpu_torch.fec.scl_np",
+                 "modem_tpu_torch.kernels.unroll", "modem_tpu_torch.card",
+                 "modem_tpu_torch.probes", "modem_tpu_torch.probes.p256",
+                 "modem_tpu_torch.probes.rank3",
+                 "modem_tpu_torch.probes.interleave"):
         assert name in mods
 
 
@@ -54,5 +58,6 @@ def test_no_jax_import():
 
 
 def test_csrc_is_packaged():
-    for name in ("sc_decode", "scl_decode"):
+    for name in ("sc_decode", "scl_decode", "probe_p256", "probe_rank3",
+                 "probe_interleave"):
         assert (ROOT / "csrc" / f"{name}.cu").exists()

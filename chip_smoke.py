@@ -19,6 +19,9 @@ Phases:
   3. the SC kernel against its plain PyTorch version on 64 noisy
      wire-size frames (noise at which plain SC loses some frames):
      codewords equal on every frame, path metrics within rtol 1e-4;
+     its tiers of state (the depth from which a frame's state lives in
+     shared memory, the bytes, the blocks an SM holds: at least 4) for
+     int8 and f32 partial sums;
   4. the list-8 kernels B (exact) and C (Fast-SSC-List) each against its
      plain version on 16 noisy wire-size frames at sigma 0.70, the first
      8 of which are bench.py's parity batch: the same per-frame recovery
@@ -38,7 +41,8 @@ Phases:
      must decode ok and byte-exact with no escalation, and the SC
      kernel's launch count must equal the number of batches; then the
      front-end and SC times per batch, the SC kernel against the plain
-     version at the main path's shape, and the peak device memory;
+     version at the main path's shape (and beside its time before the
+     redesign, A_BEFORE_MS), and the peak device memory;
   7. escalation at wire size: 64 recordings with complex AWGN at a level
      where SC fails on part of them: the adaptive result equals
      BatchPipeline(list_size=8)'s on every key, frames escalate, at
@@ -121,6 +125,8 @@ ESC_SEED = 5
 ORACLE_FAST_LOSS = "0.72:52"   # the oracle frame the fast mode loses
 CALL = "N0CALL"
 OVERRIDE_ROWS = 2048     # rows of a per-class override table
+A_BEFORE_MS = 7.733      # kernel A at [512, 65536] before its redesign
+                         # (PERF.md; same card)
 # the unroll ladder in this run: A at both codes, B and C at the
 # shorter (they take 5-10 minutes to build at 4096; PERF.md)
 UNROLL_RUNGS = ((1024, "A"), (1024, "B"), (1024, "C"), (4096, "A"))
@@ -293,8 +299,10 @@ def main() -> int:
     from modem_tpu_torch.kernels import _build
     from modem_tpu_torch.kernels import sc_decode as sc_mod
     from modem_tpu_torch.kernels import scl_decode as scl_mod
-    from modem_tpu_torch.kernels.sc_decode import (ScPlan, sc_decode,
-                                                   sc_decode_reference)
+    from modem_tpu_torch.kernels.sc_decode import (ScPlan, blocks_per_sm,
+                                                   sc_decode,
+                                                   sc_decode_reference,
+                                                   tiers_of)
     from modem_tpu_torch.kernels.scl_decode import (scl_decode,
                                                     scl_decode_reference)
     from modem_tpu_torch.numerology import MODES, make_config
@@ -354,6 +362,15 @@ def main() -> int:
     check(torch.allclose(pm_k, pm_r, rtol=PM_RTOL, atol=0.0),
           "SC kernel path metrics differ from plain")
     check(0 < hits < PARITY_FRAMES, "noise point does not split outcomes")
+    tiers = {bc: tiers_of(plan.sched, bc) for bc in (True, False)}
+    occupancy = {bc: blocks_per_sm(t) for bc, t in tiers.items()}
+    for bc, t in tiers.items():
+        print(f"tiers A ({'int8' if bc else 'f32'} betas): shared from depth "
+              f"{t.depth} of {plan.sched.n_depths}, {t.shared_bytes} bytes "
+              f"of dynamic shared memory a block, {occupancy[bc]} blocks "
+              f"per SM; global scratch {t.g_llr_len} LLRs and "
+              f"{t.g_beta_len} betas a frame")
+    check(occupancy[True] >= 4, "kernel A holds fewer than 4 blocks an SM")
 
     # ---- 4. list-8 kernels B and C vs their plain versions ---------------
     llrs_b, cw = parity_llrs(code, SCL_FRAMES, SCL_SIGMA)
@@ -544,9 +561,12 @@ def main() -> int:
     check(torch.allclose(pm_main, pm_plain, rtol=PM_RTOL, atol=0.0),
           "main-path path metrics differ")
     max_abs_err = max(parity_err, float((pm_main - pm_plain).abs().max()))
+    a_bound = kernel_bound(plan.sched, BATCH, 1)["bound_ms"]
     print(f"stages per batch of {BATCH}: front end {front_ms:.2f} ms, "
           f"SC + CRC select {select_ms:.2f} ms; SC kernel {kernel_ms:.3f} "
-          f"ms vs plain PyTorch {plain_ms:.1f} ms")
+          f"ms (before the redesign {A_BEFORE_MS} ms; bound "
+          f"{a_bound:.4f} ms) "
+          f"vs plain PyTorch {plain_ms:.1f} ms")
 
     # ---- 7. escalation at wire size ---------------------------------------
     nrng = np.random.default_rng(ESC_SEED)
@@ -1113,7 +1133,13 @@ def main() -> int:
          "launches": launches, "max_abs_err": max_abs_err,
          "ms": kernel_ms, "plain_ms": plain_ms,
          **kernel_bound(sched, BATCH, 1), "library_ms": None,
-         "shape": [BATCH, sched.code_len]},
+         "shape": [BATCH, sched.code_len],
+         "shared_depth": tiers[True].depth,
+         "shared_bytes": tiers[True].shared_bytes,
+         "blocks_per_sm": occupancy[True],
+         "f32_shared_depth": tiers[False].depth,
+         "f32_shared_bytes": tiers[False].shared_bytes,
+         "f32_blocks_per_sm": occupancy[False]},
         {"name": "scl_decode", "route": "cuda",
          "source": "modem_tpu_torch/csrc/scl_decode.cu",
          "replaces": "modem_tpu/kernels/scl_pallas.py:1732",

@@ -87,6 +87,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Per-row profile hook: profile_card.py --rows defines both macros ahead of
+// this file (the clock64() cycles of each row by key, thread 0 of block
+// 0; here the key is the opcode); everywhere else they expand to nothing.
+#ifndef ROW_PROFILE_BEGIN
+#define ROW_PROFILE_BEGIN()
+#define ROW_PROFILE_END(key)
+#endif
+
 namespace {
 
 constexpr int kChunk = 512;      // widest op; one thread per column
@@ -618,7 +626,10 @@ scl_decode_kernel(const float* __restrict__ llr_in,
       frame_begin<L, BetaT>(s, llr_in, code_len, d0_len, llr_len, beta_len,
                             n_depths, llr_scratch, beta_scratch);
   for (int i = 0; i < n_ops; ++i) {
-    run_row<L, kExact, kRank, BetaT>(f, s, TableRow{ops + i * kCols});
+    const TableRow row{ops + i * kCols};
+    ROW_PROFILE_BEGIN();
+    run_row<L, kExact, kRank, BetaT>(f, s, row);
+    ROW_PROFILE_END(row[C_OP]);
   }
   frame_end<L, BetaT>(f, s, code_len, out_off, cw_out, pm_out);
 }

@@ -14,6 +14,12 @@ straight-line code (``unroll=True``, kernels/unroll.py).
 launches the kernel (or raises); a CPU tensor takes
 :func:`sc_decode_reference`, which runs the same rows as a Python loop
 vectorised over the batch.
+
+The kernel's plan is made here, on the host, from the schedule: where a
+frame's state lives (:func:`tiers_of`: depths from ``Tiers.depth`` on in
+the block's shared memory, the rest in global scratch) and the packed row
+stream (:func:`pack_rows`: 16 bytes a row, runs of narrow rows marked for
+warp 0).  csrc/sc_decode.cu says why.
 """
 
 from __future__ import annotations
@@ -27,15 +33,170 @@ import numpy as np
 import torch
 
 from ..fec.schedule import (C_BDST, C_BSRC, C_BSRC2, C_DST, C_OP, C_SRC,
-                            C_SRC2, C_WIDTH, OP_COMBINE, OP_F, OP_G,
+                            C_SRC2, C_WIDTH, CHUNK, OP_COMBINE, OP_F, OP_G,
                             OP_RATE0, OP_RATE1, OP_REP, OP_SPC, Schedule,
-                            build_schedule)
+                            _regions, build_schedule)
 from . import _build
+
+# Shared memory of the tiered state.  Four blocks to an SM
+# (__launch_bounds__(kThreads, 4)) run a 512-frame batch in one wave over
+# the 132 SMs; each block's share of the SM's 228 KB, less the system's
+# 1 KB a block and the kernel's static __shared__ (at most STATIC_SHARED,
+# a static_assert in the .cu), bounds its shared tier.
+SMEM_PER_SM = 228 * 1024
+SMEM_RESERVED = 1024
+STATIC_SHARED = 2048
+BLOCKS_PER_SM = 4
+SHARED_BUDGET = (SMEM_PER_SM // BLOCKS_PER_SM - SMEM_RESERVED
+                 - STATIC_SHARED)                   # 55,296 bytes
+SMEM_BLOCK_MAX = 227 * 1024      # a block's most (a forced depth's limit)
+
+# The packed row stream (csrc/sc_decode.cu PackedRow): six offsets of
+# FIELD_BITS, the width, the opcode and RUN in two little-endian uint64.
+FIELD_BITS = 18
+PACKED_COLS = (C_SRC, C_SRC2, C_DST, C_BSRC, C_BSRC2, C_BDST)
+NARROW = 32          # rows this wide or narrower can run on warp 0
+RUN_MAX = 64         # the kernel stages a run's rows (kRunRows); RUN
+                     # has 7 bits
+
+
+@dataclasses.dataclass(frozen=True)
+class Tiers:
+    """Where kernel A keeps a frame's state: the LLR and beta regions of
+    depths >= ``depth`` in the block's shared memory (LLR offsets from
+    ``llr_lo``, beta offsets from ``beta_lo``: regions grow with depth, so
+    each tier is one range), the depths below in global scratch, depth 0
+    in the input."""
+
+    depth: int
+    d0_len: int
+    llr_lo: int
+    beta_lo: int
+    s_llr_len: int       # shared LLR slots (f32)
+    s_beta_len: int      # shared beta slots
+    beta_bytes: int      # 1 (int8) or 4 (f32)
+
+    @property
+    def g_llr_len(self) -> int:
+        """Global LLR scratch a frame: offsets [d0_len, llr_lo)."""
+        return self.llr_lo - self.d0_len
+
+    @property
+    def g_beta_len(self) -> int:
+        """Global beta scratch a frame: offsets [0, beta_lo)."""
+        return self.beta_lo
+
+    @property
+    def shared_bytes(self) -> int:
+        return 4 * self.s_llr_len + self.beta_bytes * self.s_beta_len
+
+
+def tiers_of(sched: Schedule, beta_compact: bool = True,
+             depth: int | None = None) -> Tiers:
+    """The tiers of ``sched``'s buffers: by default the shallowest depth
+    whose shared tier fits :data:`SHARED_BUDGET` (``beta_compact``: int8
+    betas, else f32), so four blocks share an SM; ``depth`` forces
+    another, from 1 (all but the input in shared memory, if it fits a
+    block) to ``sched.n_depths`` (nothing)."""
+    lofs, bslot, sz_llr, sz_beta = _regions(sched.code_len)
+    n_depths = len(lofs)
+
+    def at(d):
+        llr_lo = lofs[d] if d < n_depths else sz_llr
+        beta_lo = int(bslot[d, 0]) if d < n_depths else sz_beta
+        return Tiers(d, sched.d0_len, llr_lo, beta_lo, sz_llr - llr_lo,
+                     sz_beta - beta_lo, 1 if beta_compact else 4)
+
+    if depth is None:
+        return next(t for t in map(at, range(1, n_depths + 1))
+                    if t.shared_bytes <= SHARED_BUDGET)
+    if not 1 <= depth <= n_depths:
+        raise ValueError(f"shared depth {depth} outside 1..{n_depths}")
+    tiers = at(depth)
+    if tiers.shared_bytes > SMEM_BLOCK_MAX:
+        raise ValueError(f"shared depth {depth} needs {tiers.shared_bytes} "
+                         f"bytes of shared memory, over {SMEM_BLOCK_MAX}")
+    return tiers
+
+
+def in_shared_tier(ops: np.ndarray, tiers: Tiers) -> np.ndarray:
+    """Per row of the table [n, 14]: whether every slot it reads or writes
+    lies in the shared tier of ``tiers`` (the kernel's in_shared: a row's
+    offsets are where its ranges start, and the shared tier runs to the
+    end of each buffer)."""
+    ops = np.asarray(ops, dtype=np.int64)
+    op = ops[:, C_OP]
+
+    def llr(*cols):
+        return np.logical_and.reduce([ops[:, c] >= tiers.llr_lo
+                                      for c in cols])
+
+    def beta(*cols):
+        return np.logical_and.reduce([ops[:, c] >= tiers.beta_lo
+                                      for c in cols])
+
+    f = llr(C_SRC, C_SRC2, C_DST)
+    return np.select([op == OP_F, op == OP_G, op == OP_COMBINE],
+                     [f, f & beta(C_BSRC),
+                      beta(C_BSRC, C_BSRC2, C_BDST, C_DST)],
+                     llr(C_SRC) & beta(C_BDST))
+
+
+def narrow_runs(ops: np.ndarray, tiers: Tiers) -> np.ndarray:
+    """RUN of each row: at the first row of each stretch of consecutive
+    rows at most :data:`NARROW` wide and wholly in the shared tier
+    (:func:`in_shared_tier`; cut every :data:`RUN_MAX` rows), the
+    stretch's length; 0 on every other row.  Warp 0 runs a stretch alone,
+    through shared memory only; the kernel makes no decision about
+    barriers."""
+    ops = np.asarray(ops, dtype=np.int64)
+    narrow = (ops[:, C_WIDTH] <= NARROW) & in_shared_tier(ops, tiers)
+    run = np.zeros(len(ops), dtype=np.int64)
+    i = 0
+    while i < len(ops):
+        j = i
+        while j < len(ops) and narrow[j] and j - i < RUN_MAX:
+            j += 1
+        if j > i:
+            run[i] = j - i
+            i = j
+        else:
+            i += 1
+    return run
+
+
+def pack_rows(ops: np.ndarray, tiers: Tiers) -> np.ndarray:
+    """The instruction table [n, 14] as kernel A's row stream with
+    ``tiers``: int32 [n + 1, 4], row i the two little-endian uint64 ``SRC
+    | SRC2 << 18 | DST << 36 | WIDTH << 54`` and ``BSRC | BSRC2 << 18 |
+    BDST << 36 | OP << 54 | RUN << 57`` (:func:`narrow_runs`), then a
+    zero row, which the kernel loads after the last and never runs.
+    Raises ValueError on a value its field cannot hold."""
+    ops = np.asarray(ops, dtype=np.int64)
+    offs = ops[:, PACKED_COLS]
+    if ((offs < 0) | (offs >= 1 << FIELD_BITS)).any():
+        raise ValueError(f"a schedule offset outside [0, 2^{FIELD_BITS}): "
+                         "the code is too long for kernel A's table")
+    width, op = ops[:, C_WIDTH], ops[:, C_OP]
+    if ((width < 1) | (width > CHUNK)).any() or ((op < 0) | (op > 7)).any():
+        raise ValueError("a schedule width or opcode its field cannot hold")
+    u = [np.uint64(v) for v in (18, 36, 54, 57)]
+    cols = offs.astype(np.uint64)
+    lo = (cols[:, 0] | cols[:, 1] << u[0] | cols[:, 2] << u[1]
+          | width.astype(np.uint64) << u[2])
+    hi = (cols[:, 3] | cols[:, 4] << u[0] | cols[:, 5] << u[1]
+          | op.astype(np.uint64) << u[2]
+          | narrow_runs(ops, tiers).astype(np.uint64) << u[3])
+    out = np.zeros((len(ops) + 1, 2), dtype="<u8")
+    out[:len(ops), 0] = lo
+    out[:len(ops), 1] = hi
+    return out.view("<i4")
 
 
 @dataclasses.dataclass
 class ScPlan:
-    """A schedule plus its instruction table on each device it ran on."""
+    """A schedule plus its tables on each device it ran on: the 14-column
+    instruction table of the list kernels and kernel A's packed rows."""
 
     sched: Schedule
     _tables: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -50,10 +211,19 @@ class ScPlan:
 
     def table(self, device: torch.device) -> torch.Tensor:
         """int32 [n_ops, 14] instruction table on ``device``."""
-        if device not in self._tables:
-            self._tables[device] = torch.as_tensor(
+        if ("table", device) not in self._tables:
+            self._tables["table", device] = torch.as_tensor(
                 self.sched.ops, dtype=torch.int32, device=device).contiguous()
-        return self._tables[device]
+        return self._tables["table", device]
+
+    def rows(self, device: torch.device, tiers: Tiers) -> torch.Tensor:
+        """Kernel A's packed rows (:func:`pack_rows`) for ``tiers`` on
+        ``device``."""
+        key = ("rows", device, tiers.llr_lo, tiers.beta_lo)
+        if key not in self._tables:
+            self._tables[key] = torch.from_numpy(
+                pack_rows(self.sched.ops, tiers)).to(device).contiguous()
+        return self._tables[key]
 
 
 def sc_decode_reference(llrs: torch.Tensor, sched: Schedule):
@@ -116,12 +286,28 @@ def sc_decode_reference(llrs: torch.Tensor, sched: Schedule):
 def _library() -> ctypes.CDLL:
     lib = _build.load("sc_decode")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sc_decode_launch.argtypes = [p, p, i, i, i, i, i, i, i, p, p, p, p,
-                                     i, p]
+    lib.sc_decode_launch.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p, p,
+                                     p, p, i, p]
     lib.sc_decode_launch.restype = ctypes.c_int
+    lib.sc_decode_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.sc_decode_occupancy.restype = ctypes.c_int
     lib.sc_decode_error_string.argtypes = [ctypes.c_int]
     lib.sc_decode_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def blocks_per_sm(tiers: Tiers) -> int:
+    """The blocks of kernel A an SM holds at once with that shared tier
+    (the CUDA occupancy calculator; needs the card)."""
+    lib = _library()
+    blocks = ctypes.c_int(0)
+    rc = lib.sc_decode_occupancy(tiers.s_llr_len, tiers.s_beta_len,
+                                 int(tiers.beta_bytes == 4),
+                                 ctypes.byref(blocks))
+    if rc:
+        raise RuntimeError("sc_decode occupancy query failed: "
+                           + lib.sc_decode_error_string(rc).decode())
+    return blocks.value
 
 
 def check_llrs(llrs: torch.Tensor, sched: Schedule, name: str) -> None:
@@ -145,9 +331,10 @@ def sc_decode(llrs: torch.Tensor, plan: ScPlan, *, beta_compact: bool = True,
     ``beta_compact=False`` keeps the kernel's partial sums in f32 instead
     of int8, ``unroll=True`` runs the kernel generated for this schedule
     (kernels/unroll.py; int8 partial sums only), and ``zero_scratch``
-    zero-fills the scratch first (an override table may read slots it
-    never wrote; the plain version starts from zeros).  The results are
-    the same either way.
+    zero-fills the global scratch first (an override table may read slots
+    it never wrote; the plain version starts from zeros, and the kernel
+    zeroes its shared tier itself).  The results are the same either
+    way.  The frame's state is split as :func:`tiers_of` says.
 
     On a CUDA tensor this launches the kernel on the current stream
     (counted in ``sc_decode.launches`` for the default instance,
@@ -157,15 +344,16 @@ def sc_decode(llrs: torch.Tensor, plan: ScPlan, *, beta_compact: bool = True,
     check_llrs(llrs, sched, "sc_decode")
     if unroll and not beta_compact:
         raise ValueError("only the int8-beta instance is unrolled")
+    tiers = tiers_of(sched, beta_compact)
     if llrs.device.type == "cpu":
         return sc_decode_reference(llrs, sched)
 
     batch, n = llrs.shape
     dev = llrs.device
-    llr_len = sched.sz_llr - sched.d0_len
     alloc = torch.zeros if zero_scratch else torch.empty
-    llr_scratch = alloc(batch, llr_len, dtype=torch.float32, device=dev)
-    beta_scratch = alloc(batch, sched.sz_beta,
+    llr_scratch = alloc(batch, tiers.g_llr_len, dtype=torch.float32,
+                        device=dev)
+    beta_scratch = alloc(batch, tiers.g_beta_len,
                          dtype=torch.int8 if beta_compact else torch.float32,
                          device=dev)
     cw = torch.empty(batch, 1, n, dtype=torch.uint8, device=dev)
@@ -180,12 +368,13 @@ def sc_decode(llrs: torch.Tensor, plan: ScPlan, *, beta_compact: bool = True,
         err = lib.unrolled_error_string
     else:
         lib = _library()
-        table = plan.table(dev)
+        rows = plan.rows(dev, tiers)
         rc = lib.sc_decode_launch(
-            llrs.data_ptr(), table.data_ptr(), sched.n_ops, n, sched.d0_len,
-            llr_len, sched.sz_beta, sched.out_off, int(not beta_compact),
-            llr_scratch.data_ptr(), beta_scratch.data_ptr(), cw.data_ptr(),
-            pm.data_ptr(), batch, stream)
+            llrs.data_ptr(), rows.data_ptr(), sched.n_ops, n, sched.d0_len,
+            tiers.llr_lo, tiers.beta_lo, tiers.s_llr_len, tiers.s_beta_len,
+            sched.out_off, int(not beta_compact), llr_scratch.data_ptr(),
+            beta_scratch.data_ptr(), cw.data_ptr(), pm.data_ptr(), batch,
+            stream)
         err = lib.sc_decode_error_string
     if rc:
         raise RuntimeError("sc_decode kernel launch failed: "

@@ -5,13 +5,16 @@
 kernel's own text (csrc/sc_decode.cu for L = 1, csrc/scl_decode.cu for
 L = 2, 4, 8, with the macro that leaves their interpreter out) and then
 one kernel whose body is the schedule as straight-line calls of that
-text's ``run_row``, one ``ROW(...)`` line per row with the row's 14
-columns as literals: opcode, depth, width and offsets are compile-time
-constants, so the compiler folds the opcode dispatch away and reads no
-table.  Only the default instances are unrolled (no rank selection, int8
-partial sums).  :func:`library` builds it with nvcc at first use into
-``build/modem_tpu_torch/``, keyed by a hash of the generated text and the
-flags; :func:`parse_rows` reads the table back out of a generated source.
+text's row body (``unrolled_row`` for A, with A's default tiers of
+shared memory; ``run_row`` for the list kernels), one ``ROW(...)`` line
+per row with the row's 14 columns as literals: opcode, depth, width and
+offsets are compile-time constants, so the compiler folds the opcode
+dispatch and A's tier tests away and reads no table.  Only the default
+instances are unrolled (no rank selection, int8 partial sums).
+:func:`library` builds it with nvcc at first use into
+``build/modem_tpu_torch/``, keyed by a hash of the generated text and
+the flags; :func:`parse_rows` reads the table back out of a generated
+source.
 
 The program grows with the schedule (10,252 rows at wire size, each an
 inlined row body), and nvcc's time and memory grow faster than the rows:
@@ -49,18 +52,24 @@ _HEAD = """// Generated by modem_tpu_torch/kernels/unroll.py: {what}, code lengt
 _SC_KERNEL = """
 namespace {{
 
-__global__ void __launch_bounds__(kChunk, 4)
+constexpr int kDynSmem = {smem};   // the shared tier's bytes
+constexpr int kBlockThreads = kThreads;
+
+__global__ void __launch_bounds__(kThreads, 4)
 unrolled_kernel(const float* __restrict__ llr_in, float* llr_scratch,
                 int8_t* beta_scratch, uint8_t* __restrict__ cw_out,
                 float* __restrict__ pm_out) {{
   __shared__ Shared s;
-  Frame<int8_t> f = frame_begin<int8_t>(llr_in, {code_len}, {d0_len},
-                                        {llr_len}, {beta_len}, llr_scratch,
+  // the default int8 tiers (kernels/sc_decode.py tiers_of): shared from
+  // depth {depth}
+  const Geom g{{{code_len}, {d0_len}, {llr_lo}, {beta_lo}, {s_llr_len},
+               {s_beta_len}, {out_off}}};
+  Frame<int8_t> f = frame_begin<int8_t>(g, llr_in, llr_scratch,
                                         beta_scratch);
-#define ROW(...) run_row<int8_t>(f, s, LitRow{{{{__VA_ARGS__}}}})
+#define ROW(...) unrolled_row<int8_t>(f, s, LitRow{{{{__VA_ARGS__}}}})
 {rows}
 #undef ROW
-  frame_end<int8_t>(f, {code_len}, {out_off}, cw_out, pm_out);
+  frame_end<int8_t>(f, g, cw_out, pm_out);
 }}
 
 }}  // namespace
@@ -68,6 +77,9 @@ unrolled_kernel(const float* __restrict__ llr_in, float* llr_scratch,
 
 _SCL_KERNEL = """
 namespace {{
+
+constexpr int kDynSmem = 0;
+constexpr int kBlockThreads = kChunk;
 
 __global__ void __launch_bounds__(kChunk, 1)
 unrolled_kernel(const float* __restrict__ llr_in, float* llr_scratch,
@@ -95,7 +107,12 @@ extern "C" int unrolled_launch(const void* llrs, void* llr_scratch,
                                void* beta_scratch, void* cw, void* pm,
                                int batch, void* stream) {
   if (batch > 0) {
-    unrolled_kernel<<<batch, kChunk, 0, static_cast<cudaStream_t>(stream)>>>(
+    const cudaError_t e = cudaFuncSetAttribute(
+        unrolled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kDynSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    unrolled_kernel<<<batch, kBlockThreads, kDynSmem,
+                      static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(llrs), static_cast<float*>(llr_scratch),
         static_cast<int8_t*>(beta_scratch), static_cast<uint8_t*>(cw),
         static_cast<float*>(pm));
@@ -120,9 +137,14 @@ def generate(sched: Schedule, list_size: int = 1, exact: bool = True) -> str:
                 out_off=sched.out_off, n_depths=sched.n_depths,
                 n_ops=sched.n_ops, rows=rows)
     if list_size == 1:
+        from .sc_decode import tiers_of
         name, guard = "sc_decode", "SC_DECODE_UNROLLED"
         what = "kernel A (plain SC)"
-        body = _SC_KERNEL.format(**geom)
+        tiers = tiers_of(sched)
+        body = _SC_KERNEL.format(
+            depth=tiers.depth, llr_lo=tiers.llr_lo, beta_lo=tiers.beta_lo,
+            s_llr_len=tiers.s_llr_len, s_beta_len=tiers.s_beta_len,
+            smem=tiers.shared_bytes, **geom)
     else:
         name, guard = "scl_decode", "SCL_DECODE_UNROLLED"
         what = f"kernel {'B' if exact else 'C'}, L = {list_size}"

@@ -15,10 +15,12 @@ Two modes, one process each (run from the root of a checkout):
       per-opcode clock profile of the decode kernels: instrumented
       copies of csrc/sc_decode.cu and csrc/scl_decode.cu, built under
       build/profile_card/, in which thread 0 of block 0 adds the
-      clock64() cycles of each schedule row to its opcode; kernel A at
-      1 and 512 frames, kernels B and C (list-8 exact and fast) at 1
-      and 16, sigma 0.70 wire-size frames.  The instrumentation adds one clock read and a branch to
-      each row.
+      clock64() cycles of each schedule row to its opcode (through the
+      ROW_PROFILE_BEGIN / ROW_PROFILE_END hook of each row loop; kernel
+      A's rows also by class: on warp 0 alone or the block, touching the
+      global tier or not); kernel A at 1 and 512 frames, kernels B and C
+      (list-8 exact and fast) at 1 and 16, sigma 0.70 wire-size frames.
+      The instrumentation adds two clock reads and a branch to each row.
 
 Prints the card's name and power limit and a JSON summary, also
 written to FILE (default build/profile_card.json).
@@ -46,34 +48,62 @@ from modem_tpu_torch.kernels import _build  # noqa: E402
 OPS = "F G COMBINE RATE0 REP RATE1 SPC".split()
 B_FRAMES = (1, 16, 64, 132, 264)
 
-# text edits that instrument a decode kernel's row loop (--rows)
-DECL = "\n__device__ unsigned long long g_prof[16];\n"
-HEAD = "  for (int i = 0; i < n_ops; ++i) {\n"
-CLOSE = "  }\n\n  uint8_t* cw = cw_out"
-PROF = ("    if (t == 0 && blockIdx.x == 0) { g_prof[op] += clock64() - t_row;"
-        " g_prof[8 + op] += 1; }\n")
+# --rows: each kernel's row loop calls ROW_PROFILE_BEGIN() before a row
+# and ROW_PROFILE_END(key) after it, macros that the source defines empty
+# behind GUARD unless they are defined first.  The key is the opcode (B
+# and C) or the opcode + 8 if warp 0 ran the row alone + 16 if it touches
+# the global tier (A), below KEYS.  The instrumented copy is PRELUDE (the
+# counters and both macros), the source, then TAIL (the counters'
+# readers).
+KEYS = 32
+GUARD = "#ifndef ROW_PROFILE_BEGIN\n"
+HOOKS = ("ROW_PROFILE_BEGIN();", "ROW_PROFILE_END(")   # the calls, and
+DEFINES = ("#define ROW_PROFILE_BEGIN(", "#define ROW_PROFILE_END(")
+PRELUDE = """// instrumented by profile_card.py --rows
+#include <cuda_runtime.h>
+__device__ unsigned long long g_prof[64];   // cycles, then rows, by key
+#define ROW_PROFILE_BEGIN() const long long t_row = clock64()
+#define ROW_PROFILE_END(key)                      \\
+  if (threadIdx.x == 0 && blockIdx.x == 0) {      \\
+    const int k_row = (key);                      \\
+    g_prof[k_row] += clock64() - t_row;           \\
+    g_prof[32 + k_row] += 1;                      \\
+  }
+"""
 TAIL = """
 extern "C" int prof_read(void* out) {
   cudaDeviceSynchronize();
   return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
 }
 extern "C" int prof_reset() {
-  unsigned long long z[16] = {0};
+  unsigned long long z[64] = {0};
   return (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
 }
 """
 
 
-def instrument(name: str, out_dir: pathlib.Path) -> None:
+def instrument(name: str, out_dir: pathlib.Path) -> pathlib.Path:
+    """Write the instrumented copy of csrc/<name>.cu into ``out_dir`` and
+    return its path; raise if the source lacks the hook."""
     src = (_build.CSRC / f"{name}.cu").read_text()
-    for part in ("namespace {\n", HEAD, CLOSE):
-        if src.count(part) != 1:
-            raise RuntimeError(f"csrc/{name}.cu: cannot place the "
-                               f"instrumentation at {part!r}")
-    src = src.replace("namespace {\n", "namespace {\n" + DECL)
-    src = src.replace(HEAD, HEAD + "    const long long t_row = clock64();\n")
-    src = src.replace(CLOSE, PROF + CLOSE)
-    (out_dir / f"{name}.cu").write_text(src + TAIL)
+    begins = src.count(HOOKS[0])
+    ends = src.count(HOOKS[1]) - src.count(DEFINES[1])
+    if (src.count(GUARD) != 1 or any(src.count(d) != 1 for d in DEFINES)
+            or begins == 0 or begins != ends):
+        raise RuntimeError(f"csrc/{name}.cu: no row-profile hook (one "
+                           f"{GUARD.strip()!r} guard, ROW_PROFILE_BEGIN() "
+                           "and ROW_PROFILE_END(op) paired in the row loop)")
+    out = out_dir / f"{name}.cu"
+    out.write_text(PRELUDE + src + TAIL)
+    return out
+
+
+def key_name(key: int) -> str:
+    """A row-profile key as text: the opcode, then "/warp" if warp 0 ran
+    the row alone or "/block", and "/global" if it touched the global
+    tier."""
+    return (OPS[key % 8] + ("/warp" if key & 8 else "/block")
+            + ("/global" if key & 16 else ""))
 
 
 def wire_llrs(frames: int, dev):
@@ -114,23 +144,29 @@ def row_profile(dev) -> dict:
             if lib.prof_reset():
                 raise RuntimeError("prof_reset failed")
             run(x)
-            buf = (ctypes.c_ulonglong * 16)()
+            buf = (ctypes.c_ulonglong * (2 * KEYS))()
             if lib.prof_read(ctypes.addressof(buf)):
                 raise RuntimeError("prof_read failed")
-            cyc, cnt = list(buf[:7]), list(buf[8:15])
+            cyc, cnt = list(buf[:KEYS]), list(buf[KEYS:])
             total = sum(cyc)
             ghz = total / (ms * 1e6)
-            rows = {op: {"rows": cnt[i], "share": cyc[i] / total,
-                         "cycles_per_row": cyc[i] / max(cnt[i], 1),
-                         "us_per_row": cyc[i] / max(cnt[i], 1) / ghz / 1e3}
-                    for i, op in enumerate(OPS)}
+
+            def entry(c, n):
+                return {"rows": n, "share": c / total,
+                        "cycles_per_row": c / max(n, 1),
+                        "us_per_row": c / max(n, 1) / ghz / 1e3}
+
+            ops = {op: entry(sum(cyc[i::8]), sum(cnt[i::8]))
+                   for i, op in enumerate(OPS)}
+            classes = {key_name(k): entry(cyc[k], cnt[k])
+                       for k in range(KEYS) if cnt[k]}
             res[f"{kname}_{frames}"] = {"ms": ms, "cycles": total,
                                         "clock_ghz_implied": ghz,
-                                        "ops": rows}
+                                        "ops": ops, "classes": classes}
             print(f"kernel {kname}, {frames} frames: {ms:.3f} ms, {total} "
                   f"cycles of block 0 ({ghz:.3f} GHz implied)")
-            for op, r in rows.items():
-                print(f"  {op:8s} rows {r['rows']:5d}  share "
+            for name, r in (ops | (classes if kname == "A" else {})).items():
+                print(f"  {name:18s} rows {r['rows']:5d}  share "
                       f"{r['share'] * 100:5.1f} %  {r['cycles_per_row']:8.0f}"
                       f" cycles a row  {r['us_per_row']:.3f} us a row")
     return res

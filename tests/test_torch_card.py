@@ -21,8 +21,11 @@ from modem_tpu_torch import bits as B
 from modem_tpu_torch.decoder import Decoder
 from modem_tpu_torch.encoder import Encoder
 from modem_tpu_torch.fec.polar import PolarCode
-from modem_tpu_torch.kernels.sc_decode import (ScPlan, sc_decode,
-                                               sc_decode_reference)
+from modem_tpu_torch.fec.schedule import C_WIDTH
+from modem_tpu_torch.kernels import sc_decode as sc_mod
+from modem_tpu_torch.kernels.sc_decode import (NARROW, ScPlan, blocks_per_sm,
+                                               narrow_runs, sc_decode,
+                                               sc_decode_reference, tiers_of)
 from modem_tpu_torch.kernels.scl_decode import (make_decoder, scl_decode,
                                                 scl_decode_reference)
 from modem_tpu_torch.numerology import toy_config
@@ -322,6 +325,108 @@ def test_unrolled_kernel_equals_interpreter(cuda_device, name, lsz, exact):
     got = make_decoder(code.frozen, lsz, unroll=True, **kw)(llrs)
     want = make_decoder(code.frozen, lsz, **kw)(llrs)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# -- kernel A's tiers of state, narrow runs and packed rows -------------------
+
+# codes whose default shared depth D_s and depth count differ (tiers_of):
+# n = 64 (D_s 1, 7 depths), 1024 (1 / 2 with f32 betas, 11), 4096 (1 /
+# 4, 13); the wire code's is 5 / 8 of 17
+TIER_CODES = {"n64": (56, 36, 6, 0.8), "n1024": (960, 480, 10, 0.85),
+              "n4096": (4032, 2304, 12, 0.85)}
+_tiers_of = tiers_of
+
+
+def _assert_sc_equal_plain(got, x, sched):
+    cw_r, pm_r = sc_decode_reference(x, sched)
+    assert torch.equal(got[0], cw_r)
+    assert torch.allclose(got[1], pm_r, rtol=1e-5, atol=1e-3)
+
+
+def _forced_tiers(monkeypatch, depth):
+    """Make kernel A's wrapper place the shared tier at ``depth``."""
+    def forced(sched, beta_compact=True, _depth=None):
+        return _tiers_of(sched, beta_compact, depth)
+    monkeypatch.setattr(sc_mod, "tiers_of", forced)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TIER_CODES))
+@pytest.mark.parametrize("beta_compact", [True, False])
+def test_sc_tiers_at_every_depth(cuda_device, monkeypatch, name,
+                                 beta_compact):
+    """Kernel A with the shared tier starting at every depth, from 1 (all
+    but the input in shared memory) to the code's depth count (none):
+    codewords equal to the plain version's and path metrics within rtol
+    1e-5, atol 1e-3; and bit for bit the default depth's result."""
+    code, llrs = noisy_llrs(*TIER_CODES[name])
+    plan = ScPlan.from_frozen(code.frozen)
+    x = llrs.to(cuda_device)
+    want = sc_decode(x, plan, beta_compact=beta_compact)
+    _assert_sc_equal_plain(want, x, plan.sched)
+    for depth in range(1, plan.sched.n_depths + 1):
+        _forced_tiers(monkeypatch, depth)
+        got = sc_decode(x, plan, beta_compact=beta_compact)
+        assert torch.equal(got[0], want[0]), depth
+        assert torch.equal(got[1], want[1]), depth
+
+
+@pytest.mark.cuda
+def test_sc_wire_tiers_and_instances(cuda_device, monkeypatch):
+    """At wire size: the default int8 instance (D_s = 5), the f32-beta
+    one (D_s = 8), the tiers moved to depths 3 and 12, and the
+    decomposed-SPC schedule, each against the plain version; the
+    instances on the SPC-leaf schedule bit for bit equal."""
+    code, llrs = noisy_llrs(*WIRE)
+    plan = ScPlan.from_frozen(code.frozen)
+    assert tiers_of(plan.sched).depth == 5
+    assert tiers_of(plan.sched, beta_compact=False).depth == 8
+    x = llrs.to(cuda_device)
+    want = sc_decode(x, plan)
+    _assert_sc_equal_plain(want, x, plan.sched)
+    dec = make_decoder(code.frozen, 1, decompose_spc=True,
+                       device=cuda_device)
+    _assert_sc_equal_plain(dec(x), x, dec.plan.sched)
+    got = sc_decode(x, plan, beta_compact=False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for depth in (3, 12):
+        _forced_tiers(monkeypatch, depth)
+        got = sc_decode(x, plan)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                            want[1]), depth
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["n1024", "n4096"])
+@pytest.mark.parametrize("narrow", [True, False])
+def test_sc_all_narrow_or_all_wide_override(cuda_device, name, narrow):
+    """Override tables of only narrow rows (width <= 32: warp 0 runs
+    them all, in runs cut at RUN_MAX rows) or only wide ones (the block
+    runs them all), 300 cycled rows of the schedule: kernel A on zeroed
+    scratch equals the plain version on zeros."""
+    code, llrs = noisy_llrs(*TIER_CODES[name])
+    ops = ScPlan.from_frozen(code.frozen).sched.ops
+    sel = ops[(ops[:, C_WIDTH] <= NARROW) == narrow]
+    table = np.tile(sel, (300 // len(sel) + 1, 1))[:300]
+    dec = make_decoder(code.frozen, 1, ops_override=table,
+                       device=cuda_device)
+    runs = narrow_runs(table, tiers_of(dec.plan.sched))
+    assert (runs.sum() == 300) if narrow else not runs.any()
+    cw, pm = dec(llrs)
+    cw_r, pm_r = make_decoder(code.frozen, 1, ops_override=table,
+                              device="cpu")(llrs)
+    assert torch.equal(cw.cpu(), cw_r)
+    assert torch.allclose(pm.cpu(), pm_r, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_sc_four_blocks_per_sm_at_wire_size(cuda_device):
+    """The default instance's shared tier at wire size leaves room for
+    four blocks an SM (the occupancy calculator), so a batch of 512
+    frames runs in one wave; the f32-beta instance too."""
+    sched = ScPlan.from_frozen(PolarCode(*WIRE[:3]).frozen).sched
+    assert blocks_per_sm(tiers_of(sched)) >= 4
+    assert blocks_per_sm(tiers_of(sched, beta_compact=False)) >= 4
 
 
 @pytest.mark.cuda

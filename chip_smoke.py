@@ -28,7 +28,10 @@ Phases:
      of the sent codeword (as bench.scl_parity_check), the same codeword
      list in the same lane order on every frame, and the path metrics
      within rtol 1e-4; the same again at the Decoder's shape [1, 65536];
-     then kernel against plain times at [16, 65536] and [1, 65536];
+     then kernel against plain times at [16, 65536] and [1, 65536]; their
+     tiers of state for L = 2, 4, 8 with int8 and f32 partial sums (depth,
+     shared bytes, blocks an SM, global scratch a frame): the list-8 int8
+     instance must get its shared tier;
   5. both list kernels against the bit-by-bit oracle: the 500 frames of
      bench/ab_scl.py (sigma 0.64-0.76, 100 each) must recover the sent
      codeword where bench/ab_scl_oracle_64800.json says, B on all 500, C
@@ -127,6 +130,8 @@ CALL = "N0CALL"
 OVERRIDE_ROWS = 2048     # rows of a per-class override table
 A_BEFORE_MS = 7.733      # kernel A at [512, 65536] before its redesign
                          # (PERF.md; same card)
+# kernels B and C at [16, 65536] before their redesign (PERF.md; same card)
+LIST_BEFORE_MS = {"B": 22.513, "C": 18.756}
 # the unroll ladder in this run: A at both codes, B and C at the
 # shorter (they take 5-10 minutes to build at 4096; PERF.md)
 UNROLL_RUNGS = ((1024, "A"), (1024, "B"), (1024, "C"), (4096, "A"))
@@ -303,7 +308,9 @@ def main() -> int:
                                                    sc_decode,
                                                    sc_decode_reference,
                                                    tiers_of)
-    from modem_tpu_torch.kernels.scl_decode import (scl_decode,
+    from modem_tpu_torch.kernels.scl_decode import (LIST_SIZES,
+                                                    list_blocks_per_sm,
+                                                    list_tiers, scl_decode,
                                                     scl_decode_reference)
     from modem_tpu_torch.numerology import MODES, make_config
     from modem_tpu_torch.kernels import unroll
@@ -425,7 +432,32 @@ def main() -> int:
                                              exact), 5)
     print("list-8 kernels vs plain PyTorch: " + "; ".join(
         f"{k[0]} [{k[1]}, 65536] {v[0]:.3f} ms vs {v[1]:.1f} ms"
-        for k, v in list_ms.items()))
+        for k, v in list_ms.items()) + " (at [16] before the redesign: "
+        + ", ".join(f"{k} {v} ms" for k, v in LIST_BEFORE_MS.items()) + ")")
+    # the list kernels' tiers of state: every lane's regions from depth D_s
+    # in shared memory, one block an SM
+    list_tier = {}
+    for lsz in LIST_SIZES:
+        for bc in (True, False):
+            t = list_tiers(plan.sched, lsz, bc)
+            blocks = {ex: list_blocks_per_sm(t, ex) for ex in (True, False)}
+            list_tier[lsz, bc] = {
+                "shared_depth": t.depth, "shared_bytes": t.shared_bytes,
+                "blocks_per_sm": min(blocks.values()),
+                "global_bytes_per_frame": lsz * (
+                    4 * t.g_llr_len + t.beta_bytes * t.g_beta_len)}
+            print(f"tiers B/C (L = {lsz}, {'int8' if bc else 'f32'} betas): "
+                  f"shared from depth {t.depth} of {plan.sched.n_depths}, "
+                  f"{t.shared_bytes} bytes of dynamic shared memory a block, "
+                  f"B {blocks[True]} and C {blocks[False]} blocks per SM; "
+                  "global scratch "
+                  f"{list_tier[lsz, bc]['global_bytes_per_frame']} bytes a "
+                  "frame")
+    main_tier = list_tier[LIST_SIZE, True]
+    check(main_tier["shared_depth"] < plan.sched.n_depths
+          and main_tier["shared_bytes"] > 0
+          and main_tier["blocks_per_sm"] >= 1,
+          f"the list-8 int8 instance has no shared tier: {main_tier}")
 
     # ---- 5. list-8 kernels vs the bit-by-bit oracle ----------------------
     with open(os.path.join(ROOT, "bench", "ab_scl_oracle_64800.json")) as f:
@@ -1150,7 +1182,9 @@ def main() -> int:
          "library_ms": None, "shape": [FALLBACK_BATCH, sched.code_len],
          "ms_1": list_ms["B", 1][0], "plain_ms_1": list_ms["B", 1][1],
          "bound_ms_1": kernel_bound(sched, 1, LIST_SIZE, True)["bound_ms"],
-         "escalation_launches": esc_launches[1]},
+         "escalation_launches": esc_launches[1], **main_tier,
+         "tiers": [{"list_size": k[0], "beta": "int8" if k[1] else "f32",
+                    **v} for k, v in list_tier.items()]},
         {"name": "scl_decode_fast", "route": "cuda",
          "source": "modem_tpu_torch/csrc/scl_decode.cu",
          "replaces": "modem_tpu/kernels/scl_pallas.py:1732",
@@ -1161,7 +1195,7 @@ def main() -> int:
          "library_ms": None, "shape": [FALLBACK_BATCH, sched.code_len],
          "ms_1": list_ms["C", 1][0], "plain_ms_1": list_ms["C", 1][1],
          "bound_ms_1": kernel_bound(sched, 1, LIST_SIZE, False)["bound_ms"],
-         "escalation_launches": esc_c_launches[2]}] + options
+         "escalation_launches": esc_c_launches[2], **main_tier}] + options
     for k in kernels:
         print(f"bound {k['name']} at {k['shape']}: {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}: {k['bytes']} bytes, {k['operations']} "

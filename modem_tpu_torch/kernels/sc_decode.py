@@ -32,8 +32,9 @@ import functools
 import numpy as np
 import torch
 
-from ..fec.schedule import (C_BDST, C_BSRC, C_BSRC2, C_DST, C_OP, C_SRC,
-                            C_SRC2, C_WIDTH, CHUNK, OP_COMBINE, OP_F, OP_G,
+from ..fec.schedule import (C_BDST, C_BSRC, C_BSRC2, C_D, C_DST, C_LAST,
+                            C_OP, C_SIDR, C_SIDR2, C_SIDW, C_SRC, C_SRC2,
+                            C_WIDTH, CHUNK, OP_COMBINE, OP_F, OP_G,
                             OP_RATE0, OP_RATE1, OP_REP, OP_SPC, Schedule,
                             _regions, build_schedule)
 from . import _build
@@ -72,9 +73,10 @@ class Tiers:
     d0_len: int
     llr_lo: int
     beta_lo: int
-    s_llr_len: int       # shared LLR slots (f32)
-    s_beta_len: int      # shared beta slots
+    s_llr_len: int       # shared LLR slots (f32), a lane
+    s_beta_len: int      # shared beta slots, a lane
     beta_bytes: int      # 1 (int8) or 4 (f32)
+    lanes: int = 1       # list lanes, each with its own copy of the tiers
 
     @property
     def g_llr_len(self) -> int:
@@ -88,16 +90,20 @@ class Tiers:
 
     @property
     def shared_bytes(self) -> int:
-        return 4 * self.s_llr_len + self.beta_bytes * self.s_beta_len
+        return self.lanes * (4 * self.s_llr_len
+                             + self.beta_bytes * self.s_beta_len)
 
 
 def tiers_of(sched: Schedule, beta_compact: bool = True,
-             depth: int | None = None) -> Tiers:
-    """The tiers of ``sched``'s buffers: by default the shallowest depth
-    whose shared tier fits :data:`SHARED_BUDGET` (``beta_compact``: int8
-    betas, else f32), so four blocks share an SM; ``depth`` forces
-    another, from 1 (all but the input in shared memory, if it fits a
-    block) to ``sched.n_depths`` (nothing)."""
+             depth: int | None = None, *, lanes: int = 1,
+             budget: int = SHARED_BUDGET,
+             limit: int = SMEM_BLOCK_MAX) -> Tiers:
+    """The tiers of ``sched``'s buffers for ``lanes`` list lanes (kernel
+    A: 1): by default the shallowest depth whose shared tier, every
+    lane's copy, fits ``budget`` (``beta_compact``: int8 betas, else
+    f32; A's default budget lets four blocks share an SM); ``depth``
+    forces another, from 1 (all but the input in shared memory, if it
+    fits ``limit``) to ``sched.n_depths`` (nothing)."""
     lofs, bslot, sz_llr, sz_beta = _regions(sched.code_len)
     n_depths = len(lofs)
 
@@ -105,17 +111,17 @@ def tiers_of(sched: Schedule, beta_compact: bool = True,
         llr_lo = lofs[d] if d < n_depths else sz_llr
         beta_lo = int(bslot[d, 0]) if d < n_depths else sz_beta
         return Tiers(d, sched.d0_len, llr_lo, beta_lo, sz_llr - llr_lo,
-                     sz_beta - beta_lo, 1 if beta_compact else 4)
+                     sz_beta - beta_lo, 1 if beta_compact else 4, lanes)
 
     if depth is None:
         return next(t for t in map(at, range(1, n_depths + 1))
-                    if t.shared_bytes <= SHARED_BUDGET)
+                    if t.shared_bytes <= budget)
     if not 1 <= depth <= n_depths:
         raise ValueError(f"shared depth {depth} outside 1..{n_depths}")
     tiers = at(depth)
-    if tiers.shared_bytes > SMEM_BLOCK_MAX:
+    if tiers.shared_bytes > limit:
         raise ValueError(f"shared depth {depth} needs {tiers.shared_bytes} "
-                         f"bytes of shared memory, over {SMEM_BLOCK_MAX}")
+                         f"bytes of shared memory, over {limit}")
     return tiers
 
 
@@ -193,10 +199,38 @@ def pack_rows(ops: np.ndarray, tiers: Tiers) -> np.ndarray:
     return out.view("<i4")
 
 
+# The list kernels' row stream (csrc/scl_decode.cu ListRow): 32 bytes a
+# row, eight little-endian int32 words.
+LIST_ROW_WORDS = 8
+LIST_OFFSET_COLS = (C_SRC, C_SRC2, C_DST, C_BSRC, C_BSRC2, C_BDST)
+def pack_list_rows(ops: np.ndarray) -> np.ndarray:
+    """The instruction table [n, 14] as the list kernels' row stream:
+    int32 [n + 1, 8], row i ``SRC, SRC2, DST, BSRC, BSRC2, BDST, OP | D
+    << 3 | WIDTH << 8 | LAST << 18, SIDR | SIDR2 << 8 | SIDW << 16``,
+    then a zero row, which the kernel loads after the last and never
+    runs (SUB is not read).  Raises ValueError on a value its field
+    cannot hold."""
+    ops = np.asarray(ops, dtype=np.int64)
+    op, d, w, last = (ops[:, c] for c in (C_OP, C_D, C_WIDTH, C_LAST))
+    sids = ops[:, [C_SIDR, C_SIDR2, C_SIDW]]
+    if (((op < 0) | (op > 7)).any() or ((d < 0) | (d > 31)).any()
+            or ((w < 1) | (w > CHUNK)).any() or ((last < 0) | (last > 1)).any()
+            or ((sids < 0) | (sids > 255)).any()
+            or (ops[:, LIST_OFFSET_COLS] < 0).any()
+            or (ops[:, LIST_OFFSET_COLS] >= 1 << 31).any()):
+        raise ValueError("a schedule value the list kernels' row fields "
+                         "cannot hold")
+    out = np.zeros((len(ops) + 1, LIST_ROW_WORDS), dtype="<i4")
+    out[:len(ops), :6] = ops[:, LIST_OFFSET_COLS]
+    out[:len(ops), 6] = op | d << 3 | w << 8 | last << 18
+    out[:len(ops), 7] = sids[:, 0] | sids[:, 1] << 8 | sids[:, 2] << 16
+    return out
+
+
 @dataclasses.dataclass
 class ScPlan:
-    """A schedule plus its tables on each device it ran on: the 14-column
-    instruction table of the list kernels and kernel A's packed rows."""
+    """A schedule plus its packed tables on each device it ran on: kernel
+    A's rows and the list kernels'."""
 
     sched: Schedule
     _tables: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -209,12 +243,13 @@ class ScPlan:
         key = np.ascontiguousarray(frozen, dtype=np.uint8).tobytes()
         return cls(build_schedule(key, emit_spc=emit_spc))
 
-    def table(self, device: torch.device) -> torch.Tensor:
-        """int32 [n_ops, 14] instruction table on ``device``."""
-        if ("table", device) not in self._tables:
-            self._tables["table", device] = torch.as_tensor(
-                self.sched.ops, dtype=torch.int32, device=device).contiguous()
-        return self._tables["table", device]
+    def list_rows(self, device: torch.device) -> torch.Tensor:
+        """The list kernels' packed rows (:func:`pack_list_rows`) on
+        ``device``."""
+        if ("list_rows", device) not in self._tables:
+            self._tables["list_rows", device] = torch.from_numpy(
+                pack_list_rows(self.sched.ops)).to(device).contiguous()
+        return self._tables["list_rows", device]
 
     def rows(self, device: torch.device, tiers: Tiers) -> torch.Tensor:
         """Kernel A's packed rows (:func:`pack_rows`) for ``tiers`` on

@@ -54,16 +54,36 @@ from ..fec.schedule import (C_BDST, C_BSRC, C_BSRC2, C_D, C_DST, C_LAST,
                             OP_RATE0, OP_RATE1, OP_REP, OP_SPC, PAT7, SPAR7,
                             T_RATE1, Schedule, scl_params)
 from . import _build
-from .sc_decode import ScPlan, check_llrs, sc_decode
+from .sc_decode import (SMEM_BLOCK_MAX, SMEM_RESERVED, ScPlan, Tiers,
+                        check_llrs, sc_decode, tiers_of)
 
 BIG = 3.0e38          # invalid columns; clone lanes start at BIG / 2
 LIST_SIZES = (2, 4, 8)
 MAX_DEPTHS = 20       # kMaxDepths of the kernel: codes up to 2^19
+# Shared memory of the tiered state: one block an SM (a frame's chain of
+# rows is the latency; at the fallback batch of 16 most SMs idle anyway).
+# A block's 227 KB less the kernel's static __shared__ (at most
+# LIST_STATIC_SHARED, a static_assert in the .cu) and the system's 1 KB
+# bound every lane's copy of the shared tier.
+LIST_STATIC_SHARED = 8192
+LIST_BUDGET = SMEM_BLOCK_MAX - LIST_STATIC_SHARED - SMEM_RESERVED
 # The one-shot patterns that can reach a top 8 (scl_pallas.py:706-713):
 # any other pattern has at least 8 strict dominators of lower code in its
 # own lane (drop a flip, or move one to a more reliable column: an f32
 # sum taken in order never grows), so it never wins, even on a tie.
 LIVE_PATTERNS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 32, 64)
+
+
+def list_tiers(sched: Schedule, list_size: int, beta_compact: bool = True,
+               depth: int | None = None) -> Tiers:
+    """The list kernels' tiers of ``sched``'s buffers at L =
+    ``list_size``: the regions of depths >= ``Tiers.depth``, every lane's
+    copy, in the block's shared memory, by default from the shallowest
+    depth that fits :data:`LIST_BUDGET` (mode 6, int8 betas: L = 8 from
+    depth 8, 221,184 bytes); ``depth`` forces another (see
+    :func:`sc_decode.tiers_of`)."""
+    return tiers_of(sched, beta_compact, depth, lanes=list_size,
+                    budget=LIST_BUDGET, limit=LIST_BUDGET)
 
 
 def _lanes(buf: torch.Tensor, lanes: torch.Tensor, off: int, w: int):
@@ -342,12 +362,20 @@ def check_table(sched: Schedule) -> None:
 def _library(options: bool = False) -> ctypes.CDLL:
     """The default library (B and C, int8 betas) or, ``options``, the one
     built with -DSCL_DECODE_OPTIONS (rank selection, f32 betas)."""
-    lib = _build.load("scl_decode",
-                      ("SCL_DECODE_OPTIONS",) if options else ())
+    return bind(_build.load("scl_decode",
+                            ("SCL_DECODE_OPTIONS",) if options else ()))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a library built from csrc/scl_decode.cu
+    on ``lib``; returns it."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.scl_decode_launch.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, i,
-                                      p, p, p, p, i, p]
+                                      i, i, p, p, p, p, i, p]
     lib.scl_decode_launch.restype = ctypes.c_int
+    lib.scl_decode_occupancy.argtypes = [i, i, i, i, i, i,
+                                         ctypes.POINTER(i)]
+    lib.scl_decode_occupancy.restype = ctypes.c_int
     lib.scl_decode_error_string.argtypes = [ctypes.c_int]
     lib.scl_decode_error_string.restype = ctypes.c_char_p
     return lib
@@ -383,7 +411,9 @@ def scl_decode(llrs: torch.Tensor, plan: ScPlan, list_size: int,
     keeps the partial sums in f32, not int8; ``unroll`` runs the kernel
     generated for this schedule (kernels/unroll.py; default instances
     only: no rank selection, int8 betas); ``zero_scratch`` zero-fills the
-    scratch first (an override table may read slots it never wrote).
+    global scratch first (an override table may read slots it never
+    wrote; the kernel zeroes its shared tier itself).  The frame's state
+    is split as :func:`list_tiers` says.
 
     On a CUDA tensor this launches the kernel on the current stream
     (counted in ``scl_decode.launches`` for the default B,
@@ -402,16 +432,16 @@ def scl_decode(llrs: torch.Tensor, plan: ScPlan, list_size: int,
     if unroll and (rank or not beta_compact):
         raise ValueError("only the default instances (no rank selection, "
                          "int8 betas) are unrolled")
+    tiers = list_tiers(sched, list_size, beta_compact)
     if llrs.device.type == "cpu":
         return scl_decode_reference(llrs, sched, list_size, exact, rank)
 
     batch, n = llrs.shape
     dev = llrs.device
-    llr_len = sched.sz_llr - sched.d0_len
     alloc = torch.zeros if zero_scratch else torch.empty
-    llr_scratch = alloc(batch, list_size, llr_len, dtype=torch.float32,
-                        device=dev)
-    beta_scratch = alloc(batch, list_size, sched.sz_beta,
+    llr_scratch = alloc(batch, list_size, tiers.g_llr_len,
+                        dtype=torch.float32, device=dev)
+    beta_scratch = alloc(batch, list_size, tiers.g_beta_len,
                          dtype=torch.int8 if beta_compact else torch.float32,
                          device=dev)
     cw = torch.empty(batch, list_size, n, dtype=torch.uint8, device=dev)
@@ -426,13 +456,14 @@ def scl_decode(llrs: torch.Tensor, plan: ScPlan, list_size: int,
         err = lib.unrolled_error_string
     else:
         lib = _library(rank or not beta_compact)
-        table = plan.table(dev)
+        rows = plan.list_rows(dev)
         rc = lib.scl_decode_launch(
-            llrs.data_ptr(), table.data_ptr(), sched.n_ops, n, sched.d0_len,
-            llr_len, sched.sz_beta, sched.out_off, sched.n_depths, list_size,
-            int(bool(exact)), int(rank), int(not beta_compact),
-            llr_scratch.data_ptr(), beta_scratch.data_ptr(), cw.data_ptr(),
-            pm.data_ptr(), batch, stream)
+            llrs.data_ptr(), rows.data_ptr(), sched.n_ops, n, sched.d0_len,
+            tiers.llr_lo, tiers.beta_lo, tiers.s_llr_len, tiers.s_beta_len,
+            sched.out_off, sched.n_depths, list_size, int(bool(exact)),
+            int(rank), int(not beta_compact), llr_scratch.data_ptr(),
+            beta_scratch.data_ptr(), cw.data_ptr(), pm.data_ptr(), batch,
+            stream)
         err = lib.scl_decode_error_string
     if rc:
         raise RuntimeError("scl_decode kernel launch failed: "
@@ -445,6 +476,22 @@ def scl_decode(llrs: torch.Tensor, plan: ScPlan, list_size: int,
     else:
         scl_decode.fast_launches += 1
     return cw, pm
+
+
+def list_blocks_per_sm(tiers: Tiers, exact: bool = True) -> int:
+    """The blocks of that list-kernel instance (L = ``tiers.lanes``, its
+    beta type from ``tiers``, no rank selection) an SM holds at once with
+    that shared tier (the CUDA occupancy calculator; needs the card)."""
+    f32 = tiers.beta_bytes == 4
+    lib = _library(f32)
+    blocks = ctypes.c_int(0)
+    rc = lib.scl_decode_occupancy(tiers.lanes, int(bool(exact)), 0,
+                                  int(f32), tiers.s_llr_len,
+                                  tiers.s_beta_len, ctypes.byref(blocks))
+    if rc:
+        raise RuntimeError("scl_decode occupancy query failed: "
+                           + lib.scl_decode_error_string(rc).decode())
+    return blocks.value
 
 
 scl_decode.launches = 0          # kernel B

@@ -5,11 +5,12 @@
 kernel's own text (csrc/sc_decode.cu for L = 1, csrc/scl_decode.cu for
 L = 2, 4, 8, with the macro that leaves their interpreter out) and then
 one kernel whose body is the schedule as straight-line calls of that
-text's row body (``unrolled_row`` for A, with A's default tiers of
-shared memory; ``run_row`` for the list kernels), one ``ROW(...)`` line
+text's row body (``unrolled_row`` for A, ``run_row`` for the list
+kernels), one ``ROW(...)`` line
 per row with the row's 14 columns as literals: opcode, depth, width and
 offsets are compile-time constants, so the compiler folds the opcode
-dispatch and A's tier tests away and reads no table.  Only the default
+dispatch and the tier tests away and reads no table (each kernel with
+its interpreter's default tiers of shared memory).  Only the default
 instances are unrolled (no rank selection, int8 partial sums).
 :func:`library` builds it with nvcc at first use into
 ``build/modem_tpu_torch/``, keyed by a hash of the generated text and
@@ -78,22 +79,25 @@ unrolled_kernel(const float* __restrict__ llr_in, float* llr_scratch,
 _SCL_KERNEL = """
 namespace {{
 
-constexpr int kDynSmem = 0;
-constexpr int kBlockThreads = kChunk;
+constexpr int kDynSmem = {smem};   // every lane's shared tier
+constexpr int kBlockThreads = kThreads;
 
-__global__ void __launch_bounds__(kChunk, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 unrolled_kernel(const float* __restrict__ llr_in, float* llr_scratch,
                 int8_t* beta_scratch, uint8_t* __restrict__ cw_out,
                 float* __restrict__ pm_out) {{
   __shared__ Shared<{L}> s;
-  Frame<{L}, int8_t> f = frame_begin<{L}, int8_t>(
-      s, llr_in, {code_len}, {d0_len}, {llr_len}, {beta_len}, {n_depths},
-      llr_scratch, beta_scratch);
+  // the default int8 tiers (kernels/scl_decode.py list_tiers): shared
+  // from depth {depth}
+  const Geom g{{{code_len}, {d0_len}, {llr_lo}, {beta_lo}, {s_llr_len},
+               {s_beta_len}, {out_off}, {n_depths}}};
+  Frame<{L}, int8_t> f = frame_begin<{L}, int8_t>(s, g, llr_in, llr_scratch,
+                                                beta_scratch);
 #define ROW(...) \\
   run_row<{L}, {exact}, false, int8_t>(f, s, LitRow{{{{__VA_ARGS__}}}})
 {rows}
 #undef ROW
-  frame_end<{L}, int8_t>(f, s, {code_len}, {out_off}, cw_out, pm_out);
+  frame_end<{L}, int8_t>(f, s, g, cw_out, pm_out);
 }}
 
 }}  // namespace
@@ -133,7 +137,6 @@ def generate(sched: Schedule, list_size: int = 1, exact: bool = True) -> str:
     rows = "\n".join("  ROW(" + ", ".join(str(int(v)) for v in r) + ");"
                      for r in np.asarray(sched.ops))
     geom = dict(code_len=sched.code_len, d0_len=sched.d0_len,
-                llr_len=sched.sz_llr - sched.d0_len, beta_len=sched.sz_beta,
                 out_off=sched.out_off, n_depths=sched.n_depths,
                 n_ops=sched.n_ops, rows=rows)
     if list_size == 1:
@@ -148,8 +151,13 @@ def generate(sched: Schedule, list_size: int = 1, exact: bool = True) -> str:
     else:
         name, guard = "scl_decode", "SCL_DECODE_UNROLLED"
         what = f"kernel {'B' if exact else 'C'}, L = {list_size}"
-        body = _SCL_KERNEL.format(L=list_size,
-                                  exact="true" if exact else "false", **geom)
+        from .scl_decode import list_tiers
+        tiers = list_tiers(sched, list_size)
+        body = _SCL_KERNEL.format(
+            L=list_size, exact="true" if exact else "false",
+            depth=tiers.depth, llr_lo=tiers.llr_lo, beta_lo=tiers.beta_lo,
+            s_llr_len=tiers.s_llr_len, s_beta_len=tiers.s_beta_len,
+            smem=tiers.shared_bytes, **geom)
     text = (_build.CSRC / f"{name}.cu").read_text()
     return (_HEAD.format(what=what, code_len=sched.code_len,
                          n_ops=sched.n_ops, guard=guard)

@@ -18,9 +18,22 @@ Two modes, one process each (run from the root of a checkout):
       clock64() cycles of each schedule row to its opcode (through the
       ROW_PROFILE_BEGIN / ROW_PROFILE_END hook of each row loop; kernel
       A's rows also by class: on warp 0 alone or the block, touching the
-      global tier or not); kernel A at 1 and 512 frames, kernels B and C
+      global tier or not; B's and C's by tier, and the phases of their
+      forks: load and search, per-lane top L, the first barrier, merge or
+      rank, beta write, map permute; each phase's clock restarts after its
+      counter's update); kernel A at 1 and 512 frames, kernels B and C
       (list-8 exact and fast) at 1 and 16, sigma 0.70 wire-size frames.
-      The instrumentation adds two clock reads and a branch to each row.
+      The instrumentation adds two clock reads and a branch to each row,
+      and the same to each fork phase.
+
+  python3 profile_card.py --list [--against DIR] [--out FILE]
+      kernels B and C (list-8 exact and fast) at [16] and [1, 65536],
+      sigma 0.70 wire-size frames, by CUDA events, with nvcc's register
+      and spill report; with --against, the same for DIR's
+      modem_tpu_torch/csrc/scl_decode.cu (another checkout, e.g. one
+      unpacked with git archive; the same C interface), both versions'
+      outputs held equal and timed in turns in this one process (this,
+      that, that, this; three times).
 
 Prints the card's name and power limit and a JSON summary, also
 written to FILE (default build/profile_card.json).
@@ -50,24 +63,39 @@ B_FRAMES = (1, 16, 64, 132, 264)
 
 # --rows: each kernel's row loop calls ROW_PROFILE_BEGIN() before a row
 # and ROW_PROFILE_END(key) after it, macros that the source defines empty
-# behind GUARD unless they are defined first.  The key is the opcode (B
-# and C) or the opcode + 8 if warp 0 ran the row alone + 16 if it touches
-# the global tier (A), below KEYS.  The instrumented copy is PRELUDE (the
-# counters and both macros), the source, then TAIL (the counters'
-# readers).
-KEYS = 32
+# behind GUARD unless they are defined first.  The key is the opcode + 16
+# if the row touches the global tier, + 8 (A) if warp 0 ran it alone,
+# below ROW_KEYS.  B's and C's forks also call ROW_PROFILE_PHASES() at the
+# row's start and ROW_PROFILE_PHASE(key) at the end of each phase, with
+# the keys from ROW_KEYS on (PHASE_KEY).  The instrumented copy is
+# PRELUDE (the counters and the macros), the source, then TAIL (the
+# counters' readers).
+KEYS = 64
+ROW_KEYS = 32
+PHASE_KEY = 32       # + (opcode - REP) * 8 + phase (kPhaseKey)
+PHASES = ("load+search", "lane top L", "merge/rank", "beta write",
+          "map permute", "barrier 1")
 GUARD = "#ifndef ROW_PROFILE_BEGIN\n"
 HOOKS = ("ROW_PROFILE_BEGIN();", "ROW_PROFILE_END(")   # the calls, and
 DEFINES = ("#define ROW_PROFILE_BEGIN(", "#define ROW_PROFILE_END(")
 PRELUDE = """// instrumented by profile_card.py --rows
 #include <cuda_runtime.h>
-__device__ unsigned long long g_prof[64];   // cycles, then rows, by key
+__device__ unsigned long long g_prof[128];  // cycles, then rows, by key
 #define ROW_PROFILE_BEGIN() const long long t_row = clock64()
 #define ROW_PROFILE_END(key)                      \\
   if (threadIdx.x == 0 && blockIdx.x == 0) {      \\
     const int k_row = (key);                      \\
     g_prof[k_row] += clock64() - t_row;           \\
-    g_prof[32 + k_row] += 1;                      \\
+    g_prof[64 + k_row] += 1;                      \\
+  }
+#define ROW_PROFILE_PHASES() long long t_phase = clock64()
+#define ROW_PROFILE_PHASE(key)                    \\
+  if (threadIdx.x == 0 && blockIdx.x == 0) {      \\
+    const int k_row = (key);                      \\
+    const long long t_now = clock64();            \\
+    g_prof[k_row] += t_now - t_phase;             \\
+    g_prof[64 + k_row] += 1;                      \\
+    t_phase = clock64();                          \\
   }
 """
 TAIL = """
@@ -76,7 +104,7 @@ extern "C" int prof_read(void* out) {
   return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
 }
 extern "C" int prof_reset() {
-  unsigned long long z[64] = {0};
+  unsigned long long z[128] = {0};
   return (int)cudaMemcpyToSymbol(g_prof, z, sizeof(z));
 }
 """
@@ -98,10 +126,16 @@ def instrument(name: str, out_dir: pathlib.Path) -> pathlib.Path:
     return out
 
 
-def key_name(key: int) -> str:
-    """A row-profile key as text: the opcode, then "/warp" if warp 0 ran
-    the row alone or "/block", and "/global" if it touched the global
-    tier."""
+def key_name(key: int, kernel: str = "A") -> str:
+    """A row-profile key as text.  Below ROW_KEYS the opcode, then (A)
+    "/warp" if warp 0 ran the row alone or "/block", and "/global" if it
+    touched the global tier ((B, C) else "/shared"); from PHASE_KEY a
+    fork opcode and its phase."""
+    if key >= PHASE_KEY:
+        op, phase = divmod(key - PHASE_KEY, 8)
+        return f"{OPS[4 + op]}:{PHASES[phase]}"
+    if kernel != "A":
+        return OPS[key % 8] + ("/global" if key & 16 else "/shared")
     return (OPS[key % 8] + ("/warp" if key & 8 else "/block")
             + ("/global" if key & 16 else ""))
 
@@ -148,28 +182,85 @@ def row_profile(dev) -> dict:
             if lib.prof_read(ctypes.addressof(buf)):
                 raise RuntimeError("prof_read failed")
             cyc, cnt = list(buf[:KEYS]), list(buf[KEYS:])
-            total = sum(cyc)
-            ghz = total / (ms * 1e6)
 
             def entry(c, n):
                 return {"rows": n, "share": c / total,
                         "cycles_per_row": c / max(n, 1),
                         "us_per_row": c / max(n, 1) / ghz / 1e3}
 
-            ops = {op: entry(sum(cyc[i::8]), sum(cnt[i::8]))
+            rows = slice(0, ROW_KEYS)
+            total = sum(cyc[rows])
+            ghz = total / (ms * 1e6)
+            ops = {op: entry(sum(cyc[rows][i::8]), sum(cnt[rows][i::8]))
                    for i, op in enumerate(OPS)}
-            classes = {key_name(k): entry(cyc[k], cnt[k])
+            classes = {key_name(k, kname): entry(cyc[k], cnt[k])
                        for k in range(KEYS) if cnt[k]}
             res[f"{kname}_{frames}"] = {"ms": ms, "cycles": total,
                                         "clock_ghz_implied": ghz,
                                         "ops": ops, "classes": classes}
             print(f"kernel {kname}, {frames} frames: {ms:.3f} ms, {total} "
                   f"cycles of block 0 ({ghz:.3f} GHz implied)")
-            for name, r in (ops | (classes if kname == "A" else {})).items():
+            for name, r in (ops | classes).items():
                 print(f"  {name:18s} rows {r['rows']:5d}  share "
                       f"{r['share'] * 100:5.1f} %  {r['cycles_per_row']:8.0f}"
                       f" cycles a row  {r['us_per_row']:.3f} us a row")
     return res
+
+
+def list_times(dev, against: str | None) -> dict:
+    """Kernels B and C at [16] and [1], this checkout's source and, with
+    ``against``, another's in turns."""
+    from modem_tpu_torch.kernels import scl_decode as scl_mod
+    default = scl_mod._library
+    logs = {"this": _build.library_path("scl_decode")}
+    loads = {"this": default}
+    if against:
+        text = (pathlib.Path(against) / "modem_tpu_torch" / "csrc"
+                / "scl_decode.cu").read_text()
+        logs["against"] = _build.generated_path("scl_decode_against", text)
+        loads["against"] = lambda: scl_mod.bind(
+            _build.load_generated("scl_decode_against", text))
+    out = {"build_s": cs.build_all(loads), "ptxas": {}, "equal": {},
+           "ms": {}}
+    libs = {name: load() for name, load in loads.items()}
+    for name, lib in logs.items():
+        out["ptxas"][name] = [
+            line.strip() for line in lib.with_suffix(".log").read_text()
+            .splitlines() if "registers" in line or "spill" in line]
+        print(f"ptxas {name}:", *out["ptxas"][name], sep="\n  ")
+    plan, llrs = wire_llrs(16, dev)
+
+    def run(name, x, exact):
+        scl_mod._library = lambda options=False: libs[name]
+        try:
+            return scl_mod.scl_decode(x, plan, 8, exact)
+        finally:
+            scl_mod._library = default
+
+    for exact in (True, False):
+        for frames in (16, 1):
+            key = f"{'B' if exact else 'C'}_{frames}"
+            x = llrs[:frames].contiguous()
+            want = run("this", x, exact)
+            if against:
+                got = run("against", x, exact)
+                out["equal"][key] = bool(torch.equal(got[0], want[0])
+                                         and torch.equal(got[1], want[1]))
+                pairs = [cs.turns_ms(lambda: run("this", x, exact),
+                                     lambda: run("against", x, exact), 10)
+                         for _ in range(3)]
+                out["ms"][key] = {"this": [a for a, _ in pairs],
+                                  "against": [b for _, b in pairs]}
+            else:
+                out["ms"][key] = {"this": [
+                    cs.cuda_ms(lambda: run("this", x, exact), 10)
+                    for _ in range(3)]}
+            print(f"kernel {key[0]} [{frames}, 65536]: " + "; ".join(
+                f"{name} " + ", ".join(f"{t:.3f}" for t in ts) + " ms"
+                for name, ts in out["ms"][key].items())
+                + (f"; outputs equal: {out['equal'][key]}" if against
+                   else ""), flush=True)
+    return out
 
 
 def serve_profile(dev) -> dict:
@@ -277,6 +368,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", action="store_true",
                     help="per-opcode clock profile of both kernels")
+    ap.add_argument("--list", action="store_true",
+                    help="kernels B and C at [16] and [1]")
+    ap.add_argument("--against", default=None,
+                    help="with --list: another checkout to time in turns")
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "profile_card.json"))
     args = ap.parse_args()
@@ -287,8 +382,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.card_line()
     print(card, flush=True)
-    res = {"card": card, **(row_profile(dev) if args.rows
-                            else serve_profile(dev))}
+    if args.rows:
+        res = row_profile(dev)
+    elif args.list:
+        res = list_times(dev, args.against)
+    else:
+        res = serve_profile(dev)
+    res = {"card": card, **res}
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(res, indent=1))

@@ -26,7 +26,11 @@ from modem_tpu_torch.kernels import sc_decode as sc_mod
 from modem_tpu_torch.kernels.sc_decode import (NARROW, ScPlan, blocks_per_sm,
                                                narrow_runs, sc_decode,
                                                sc_decode_reference, tiers_of)
-from modem_tpu_torch.kernels.scl_decode import (make_decoder, scl_decode,
+from modem_tpu_torch.kernels import scl_decode as scl_mod
+from modem_tpu_torch.kernels.scl_decode import (LIST_BUDGET,
+                                                list_blocks_per_sm,
+                                                list_tiers, make_decoder,
+                                                scl_decode,
                                                 scl_decode_reference)
 from modem_tpu_torch.numerology import toy_config
 from modem_tpu_torch.pipeline import AdaptivePipeline, BatchPipeline
@@ -454,3 +458,115 @@ def test_probe_interleave_matches_twin(cuda_device):
     iterations: the output within rtol 1e-5, atol 1e-3, and pm on its
     own within rtol 1e-5."""
     interleave.check(cuda_device)
+
+
+# -- kernels B and C: their tiers of state -------------------------------------
+
+_list_tiers = list_tiers
+
+
+def _forced_list_tiers(monkeypatch, depth):
+    """Make the list kernels' wrapper place the shared tier at ``depth``,
+    fitting or not (a tier the card refuses must raise)."""
+    def forced(sched, list_size, beta_compact=True, _depth=None):
+        return tiers_of(sched, beta_compact, depth, lanes=list_size,
+                        budget=LIST_BUDGET, limit=1 << 40)
+    monkeypatch.setattr(scl_mod, "list_tiers", forced)
+
+
+def _fitting_depths(sched, lsz, beta_compact=True):
+    return [d for d in range(1, sched.n_depths + 1)
+            if tiers_of(sched, beta_compact, d, lanes=lsz,
+                        limit=1 << 40).shared_bytes <= LIST_BUDGET]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TIER_CODES))
+@pytest.mark.parametrize("lsz", [2, 4, 8])
+@pytest.mark.parametrize("exact", [True, False])
+def test_list_tiers_at_every_depth(cuda_device, monkeypatch, name, lsz,
+                                   exact):
+    """Kernel B (exact) or C with the shared tier starting at every depth
+    that fits a block, from all but the input in shared memory to none:
+    codewords in the plain version's lane order and path metrics within
+    rtol 1e-5, atol 1e-3; bit for bit the default depth's result; and
+    the rank and f32-beta instances equal to it at the shallowest and
+    deepest of those depths."""
+    code, llrs = noisy_llrs(*TIER_CODES[name])
+    plan = ScPlan.from_frozen(code.frozen)
+    x = llrs.to(cuda_device)
+    want = scl_decode(x, plan, lsz, exact)
+    cw_r, pm_r = scl_decode_reference(x, plan.sched, lsz, exact)
+    assert torch.equal(want[0], cw_r)
+    assert torch.allclose(want[1], pm_r, rtol=1e-5, atol=1e-3)
+    depths = _fitting_depths(plan.sched, lsz)
+    assert depths[-1] == plan.sched.n_depths
+    for depth in depths:
+        _forced_list_tiers(monkeypatch, depth)
+        got = scl_decode(x, plan, lsz, exact)
+        assert torch.equal(got[0], want[0]), depth
+        assert torch.equal(got[1], want[1]), depth
+    for depth in (depths[0], depths[-1]):
+        _forced_list_tiers(monkeypatch, depth)
+        for opts in ({"rank_select": exact}, {"beta_compact": False}):
+            if opts.get("beta_compact") is False and depth not in \
+                    _fitting_depths(plan.sched, lsz, False):
+                continue
+            got = scl_decode(x, plan, lsz, exact, **opts)
+            assert torch.equal(got[0], want[0]), (depth, opts)
+            assert torch.equal(got[1], want[1]), (depth, opts)
+
+
+@pytest.mark.cuda
+def test_list_wire_tiers_one_block_an_sm(cuda_device, monkeypatch):
+    """At wire size every instance (L = 2, 4, 8; B and C; int8 and f32
+    betas) holds one block an SM with its shared tier, L = 8 with int8
+    betas from depth 8 (221,184 bytes); B and C with the tier moved to
+    depths 10 and 17 (none) equal the default on 4 frames; a tier the
+    card cannot hold makes the wrapper raise, with no fallback."""
+    code, llrs = noisy_llrs(*WIRE, frames=4)
+    plan = ScPlan.from_frozen(code.frozen)
+    t8 = list_tiers(plan.sched, 8)
+    assert (t8.depth, t8.shared_bytes) == (8, 221184)
+    for lsz in (2, 4, 8):
+        for bc in (True, False):
+            t = list_tiers(plan.sched, lsz, bc)
+            for exact in (True, False):
+                assert list_blocks_per_sm(t, exact) == 1, (lsz, bc, exact)
+    x = llrs.to(cuda_device)
+    for exact in (True, False):
+        want = scl_decode(x, plan, 8, exact)
+        for depth in (10, plan.sched.n_depths):
+            _forced_list_tiers(monkeypatch, depth)
+            got = scl_decode(x, plan, 8, exact)
+            assert torch.equal(got[0], want[0]) and torch.equal(
+                got[1], want[1]), (exact, depth)
+        _forced_list_tiers(monkeypatch, 5)       # 393,216 bytes
+        with pytest.raises(RuntimeError, match="launch failed"):
+            scl_decode(x, plan, 8, exact)
+        monkeypatch.undo()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spc", [False, True])
+def test_list_wide_leaf_of_infinite_llrs(cuda_device, spc):
+    """A RATE1 (or SPC) leaf of 512 columns whose LLRs are infinite but
+    for fewer than the 7-8 the exact search takes (none on the first
+    frame): no BIG column is left past the width, so the search takes the
+    inf columns, as the plain version does; B and C give the plain
+    version's codewords and path metrics (tests/test_torch_scl_emulated.py
+    holds the same on the CPU)."""
+    frozen = np.zeros(512, dtype=bool)
+    frozen[0] = spc
+    plan = ScPlan.from_frozen(frozen)
+    rng = np.random.default_rng(3)
+    llrs = torch.from_numpy(
+        rng.choice(np.float32([-np.inf, np.inf]), (4, 512)))
+    for b in range(1, 4):
+        llrs[b, rng.choice(512, 2 * b - 1, replace=False)] = torch.from_numpy(
+            rng.standard_normal(2 * b - 1).astype(np.float32))
+    for exact in (True, False):
+        cw, pm = scl_decode(llrs.to(cuda_device), plan, 8, exact)
+        cw_r, pm_r = scl_decode_reference(llrs, plan.sched, 8, exact)
+        assert torch.equal(cw.cpu(), cw_r), exact
+        assert torch.allclose(pm.cpu(), pm_r, rtol=1e-5, atol=1e-3), exact

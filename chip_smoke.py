@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (modem_tpu_torch) on one GPU.
 
-Drives the port's two paths as a user would, with every kernel built
+Drives the port's three paths as a user would, with every kernel built
 from csrc/ by nvcc: the serving decode, AdaptivePipeline(8000, 6,
 device="cuda") on batches of 512 mode-6 recordings made by the port's
 own encoder (every frame through the SC kernel A, the frames whose CRC
-fails through the list-8 kernel B, or C with scl_exact=False), and the
+fails through the list-8 kernel B, or C with scl_exact=False), the
 interactive Decoder(8000, device="cuda") on whole recordings of every
 mode (sync scan, OSD header, all-pairs payload demod, list decode with B
-or C).
+or C), and decode-all, pipeline.decode_recording_auto on int16 PCM (the
+scan and its front end on the card, one header batch, one windowed
+decode a mode group: A then B, or B alone).
 
 Phases:
   1. the card's name and power limit (nvidia-smi);
@@ -82,7 +84,21 @@ Phases:
      against its plain twin at small R (tolerances in the modules; F's
      output and its pm each at their own), then the timings at the
      original probes' R, with F's verdicts (chain, leaf and the narrow
-     width-4 body: single, dual, dual through shared barriers, double).
+     width-4 body: single, dual, dual through shared barriers, double);
+ 13. decode-all (decode_recording_auto, each drive a warm-up call then a
+     timed one with the counts at 0 just before): an hour of mono int16
+     at 8 kHz (28,800,000 samples, 12 mode-6 frames at seeded offsets,
+     bench/long_recording.py's layout) adaptive, 12/12 byte-exact; 64
+     frames, 8 of each mode 6-13 in turn with 0.5 s gaps, seeded call
+     signs, exact (B on every frame) and adaptive, 64/64 right and the
+     two lists equal but for snr; each run's wall ms split into scan,
+     headers, windows and payload, the chunks, A's and B's launches and
+     the peak device memory; every mode's B tier; A at the hour's
+     [12, 65536] and B at the mode-6 group's [8, 65536] against their
+     plain versions; the three golden WAVs read in wire dtype and
+     decoded under "auto" (and by Decoder(mls_convention="auto")), a
+     galois-only receiver rejecting the fibonacci one; one mode-6 frame
+     through channel.reference_chain (-30 dB) decoded byte-exact.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Prints a
 JSON line of kernel results (each kernel's time, its plain version's,
@@ -137,6 +153,12 @@ LIST_BEFORE_MS = {"B": 22.513, "C": 18.756}
 UNROLL_RUNGS = ((1024, "A"), (1024, "B"), (1024, "C"), (4096, "A"))
 INTERLEAVE_REPS = 2000   # bench/probe_interleave.py's defaults
 WIDTH_REPS = 50000
+HOUR_SAMPLES = 3600 * 8000   # bench/long_recording.py: 1 h of 8 kHz mono
+HOUR_FRAMES = 12
+HOUR_SEED = 7
+PER_MODE = 8                 # frames of each mode 6-13 in the auto recording
+AUTO_SEED = 3
+IMPAIRED_SEED = 2            # tests/test_channel.py's reference chain
 
 
 def check(cond, msg: str) -> None:
@@ -291,6 +313,286 @@ def wall_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(walls))
+
+
+def int16_pcm(x: np.ndarray):
+    """A real recording quantised to the 16-bit wire format, as a
+    PcmRecording (wav._quantize's rounding)."""
+    from modem_tpu_torch.ingest import PcmRecording
+    q = np.clip(np.rint(x * 32767.0), -32768, 32767).astype(np.int16)
+    return PcmRecording(data=q, bits=16, rate=8000)
+
+
+def hour_recording(dev, samples: int = HOUR_SAMPLES,
+                   frames: int = HOUR_FRAMES):
+    """bench/long_recording.py's recording: mono int16 at 8 kHz, ``frames``
+    mode-6 frames (the port's encoder on ``dev``, seeded payloads, call
+    sign CALL), each at a seeded offset in its own slot and at least 1 s
+    apart, over 1e-4 of seeded noise.  Returns (PcmRecording, payloads,
+    frame starts)."""
+    from modem_tpu_torch import bits as B
+    from modem_tpu_torch.encoder import Encoder
+    from modem_tpu_torch.numerology import make_config
+
+    cfg = make_config(8000, 6, 2000)
+    rng = np.random.default_rng(HOUR_SEED)
+    payloads = [rng.integers(0, 256, cfg.mode.data_bytes,
+                             dtype=np.uint8).tobytes()
+                for _ in range(frames)]
+    waves, _ = Encoder(cfg, device=dev).encode_batch(
+        payloads, B.base37_encode(CALL))
+    waves = waves.real.cpu().numpy()
+    flen = waves.shape[1]
+    gap = cfg.rate
+    slot = (samples - gap) // frames
+    check(slot > flen + gap, "recording too short for its frames")
+    starts = np.sort(rng.integers(0, slot - flen - gap, frames)
+                     + np.arange(frames) * slot + gap)
+    xm = (1e-4 * rng.standard_normal(samples)).astype(np.float32)
+    for s0, w in zip(starts, waves):
+        xm[s0: s0 + flen] += w
+    return int16_pcm(xm), payloads, starts
+
+
+def auto_recording(dev, per_mode: int = PER_MODE):
+    """``per_mode`` frames of each mode 6-13 in turn, seeded payloads and
+    call signs, 0.5 s of silence around each, as mono int16 at 8 kHz.
+    Returns (PcmRecording, [(mode, call sign, True, payload)])."""
+    from modem_tpu_torch import bits as B
+    from modem_tpu_torch.encoder import Encoder
+    from modem_tpu_torch.numerology import MODES, make_config
+
+    rng = np.random.default_rng(AUTO_SEED)
+    encoders = {m: Encoder(make_config(8000, m, 2000), device=dev)
+                for m in MODES}
+    gap = torch.zeros(4000, dtype=torch.float32, device=dev)
+    parts, sent = [gap], []
+    for _ in range(per_mode):
+        for m in sorted(MODES):
+            payload = rng.integers(0, 256, MODES[m].data_bytes,
+                                   dtype=np.uint8).tobytes()
+            call = "".join(rng.choice(
+                list("ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"), 6))
+            w, _ = encoders[m].encode_batch([payload],
+                                            B.base37_encode(call))
+            parts += [w[0].real, gap]
+            sent.append((m, call, True, payload))
+    return int16_pcm(torch.cat(parts).cpu().numpy()), sent
+
+
+def decode_all(dev, reset_counts, hour_samples: int = HOUR_SAMPLES,
+               hour_frames: int = HOUR_FRAMES, per_mode: int = PER_MODE):
+    """Phase 13: pipeline.decode_recording_auto, the decode-all path, on
+    recordings made on the card by the port's encoder (and channel), and
+    on the golden WAVs read by the port's wav module.  Each drive runs
+    with the launch counts at 0 just before and read just after.
+    Returns (summary dict, kernel entries for A and B on this path)."""
+    from modem_tpu_torch import bits as B
+    from modem_tpu_torch import channel, wav
+    from modem_tpu_torch.decoder import Decoder, cached_decoder
+    from modem_tpu_torch.encoder import Encoder
+    from modem_tpu_torch.kernels.sc_decode import (sc_decode,
+                                                   sc_decode_reference)
+    from modem_tpu_torch.kernels.scl_decode import (list_blocks_per_sm,
+                                                    list_tiers, scl_decode,
+                                                    scl_decode_reference)
+    from modem_tpu_torch.numerology import MODES, make_config
+    from modem_tpu_torch.pipeline import (cached_adaptive_pipeline,
+                                          cached_pipeline,
+                                          decode_recording_auto)
+
+    summary = {}
+
+    def drive(label, pcm, **kw):
+        """One warm-up call, then one timed call with every count at 0
+        just before and read just after, the peak device memory reset
+        before it; the PcmRecording is made anew for each call, so its
+        one copy to the card counts."""
+        def fresh():
+            return type(pcm)(data=pcm.data, bits=pcm.bits, rate=pcm.rate)
+        decode_recording_auto(fresh(), 8000, device=dev, **kw)
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = decode_recording_auto(fresh(), 8000, device=dev, stats=stats,
+                                    **kw)
+        torch.cuda.synchronize()
+        stats["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        stats["launches_A"] = sc_decode.launches
+        stats["launches_B"] = scl_decode.launches
+        stats["launches_C"] = scl_decode.fast_launches
+        stats["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        summary[label] = stats
+        print(f"decode-all {label}: {len(out)} frames; wall {stats['wall_ms']:.1f}"
+              f" ms (scan {stats['scan_ms']:.1f} in {stats['chunks']} chunks, "
+              f"headers {stats['headers_ms']:.1f}, windows "
+              f"{stats['windows_ms']:.1f}, payload {stats['payload_ms']:.1f});"
+              f" launches A {stats['launches_A']}, B {stats['launches_B']}, "
+              f"C {stats['launches_C']}; peak device memory "
+              f"{stats['peak_mib']:.0f} MiB")
+        check(stats["launches_C"] == 0, f"{label} launched kernel C")
+        return out
+
+    # -- 13.1 an hour of int16 audio, 12 mode-6 frames (the layout of
+    # bench/long_recording.py: one slot a frame, at least 1 s apart)
+    t0 = time.perf_counter()
+    cfg = make_config(8000, 6, 2000)
+    hour, payloads, starts = hour_recording(dev, hour_samples, hour_frames)
+    print(f"decode-all hour: {hour_samples} samples of mono int16 at 8 kHz "
+          f"({hour.data.nbytes / 1e6:.1f} MB), {hour_frames} mode-6 frames, "
+          f"made in {time.perf_counter() - t0:.1f} s")
+    out = drive("hour", hour, channels=1, adaptive=True)
+    got = [(f["mode"], f["call_sign"], f["ok"], f["payload"]) for f in out]
+    offsets = {f["pos"] - int(s0) for f, s0 in zip(out, starts)}
+    check(got == [(6, CALL, True, p) for p in payloads],
+          f"hour: {sum(g[2] for g in got)} of {hour_frames} frames ok")
+    check(len(offsets) == 1, f"hour: frame positions off the layout "
+          f"{sorted(offsets)}")
+    hour_stats = summary["hour"]
+    hour_stats["realtime_x"] = hour_samples / 8000 / (
+        hour_stats["wall_ms"] / 1e3)
+    print(f"decode-all hour: {hour_frames}/{hour_frames} frames byte-exact, "
+          f"mode 6, {CALL}; {hour_stats['realtime_x']:.1f}x real time")
+
+    # A at this path's shape: the hour's frames through the SC pipeline's
+    # front end, kernel against its plain version
+    pipe = cached_adaptive_pipeline(8000, 6, device=dev)
+    wins, _ = pipe.windows_at(hour, [f["pos"] for f in out])
+    llrs_a = pipe.sc.demod(wins)["llrs"]
+    plan6 = pipe.sc.plan
+    cw_k, pm_k = sc_decode(llrs_a, plan6)
+    cw_r, pm_r = sc_decode_reference(llrs_a, plan6.sched)
+    check(torch.equal(cw_k, cw_r) and torch.allclose(
+        pm_k, pm_r, rtol=PM_RTOL, atol=0.0),
+        "decode-all: kernel A differs from its plain version")
+    a_err = float((pm_k - pm_r).abs().max())
+    a_ms, a_plain = kernel_vs_plain_ms(
+        lambda: sc_decode(llrs_a, plan6),
+        lambda: sc_decode_reference(llrs_a, plan6.sched), 10)
+    print(f"decode-all A at [{hour_frames}, 65536]: codewords equal, max "
+          f"|pm diff| {a_err}; {a_ms:.3f} ms vs plain {a_plain:.1f} ms")
+
+    # -- 13.2 frames of every mode, auto mode: 0.5 s gaps, modes 6-13 in
+    # turn, seeded payloads and call signs
+    t0 = time.perf_counter()
+    auto_rec, sent = auto_recording(dev, per_mode)
+    n_auto = len(sent)
+    print(f"decode-all auto: {n_auto} frames ({per_mode} of each mode "
+          f"6-13), {auto_rec.n_samples} samples of mono int16, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    lists = {}
+    for adaptive in (False, True):
+        label = f"auto {'adaptive' if adaptive else 'exact'}"
+        out = drive(label, auto_rec, channels=1, adaptive=adaptive)
+        got = [(f["mode"], f["call_sign"], f["ok"], f["payload"])
+               for f in out]
+        good = sum(g == w for g, w in zip(got, sent))
+        check(got == sent, f"{label}: {good} of {n_auto} frames right")
+        lists[adaptive] = [{k: v for k, v in f.items() if k != "snr"}
+                           for f in out]
+        print(f"decode-all {label}: {n_auto}/{n_auto} frames with the right "
+              "mode, call sign and bytes")
+    check(lists[False] == lists[True],
+          "decode-all: adaptive and exact lists differ")
+    check(summary["auto exact"]["launches_B"] == len(MODES)
+          and summary["auto exact"]["launches_A"] == 0,
+          "decode-all exact: not one kernel-B launch a mode group")
+    for m in sorted(MODES):
+        t = list_tiers(cached_pipeline(8000, m, device=dev).plan.sched, 8)
+        print(f"decode-all tiers B, mode {m}: shared from depth {t.depth}, "
+              f"{t.shared_bytes} bytes, {list_blocks_per_sm(t, True)} block "
+              "an SM")
+
+    # B at this path's shape: the mode-6 group, [per_mode, 65536]
+    pipe_b = cached_pipeline(8000, 6, device=dev)
+    pos6 = [f["pos"] for f in lists[True] if f["mode"] == 6]
+    wins, _ = pipe_b.windows_at(auto_rec, pos6)
+    llrs_b = pipe_b.demod(wins)["llrs"]
+    cw_k, pm_k = scl_decode(llrs_b, pipe_b.plan, LIST_SIZE, True)
+    cw_r, pm_r = scl_decode_reference(llrs_b, pipe_b.plan.sched, LIST_SIZE,
+                                      True)
+    check(torch.equal(cw_k, cw_r) and torch.allclose(
+        pm_k, pm_r, rtol=PM_RTOL, atol=0.0),
+        "decode-all: kernel B differs from its plain version")
+    b_err = float((pm_k - pm_r).abs().max())
+    b_ms, b_plain = kernel_vs_plain_ms(
+        lambda: scl_decode(llrs_b, pipe_b.plan, LIST_SIZE, True),
+        lambda: scl_decode_reference(llrs_b, pipe_b.plan.sched, LIST_SIZE,
+                                     True), 5)
+    print(f"decode-all B at [{len(pos6)}, 65536]: codewords and lane order "
+          f"equal, max |pm diff| {b_err}; {b_ms:.3f} ms vs plain "
+          f"{b_plain:.1f} ms")
+
+    # -- 13.3 the three MLS conventions: the golden WAVs in wire dtype
+    want = np.load(os.path.join(ROOT, "tests", "data",
+                                "waveform_pin_payload_seed.npy")).tobytes()
+    auto_dec = cached_decoder(8000, mls_convention="auto", device=dev)
+    for conv in ("galois", "fibonacci", "msb"):
+        path = os.path.join(ROOT, "tests", "data", f"golden_mode6_{conv}.wav")
+        pcm = wav.read_wav_raw(path)
+        out = decode_recording_auto(pcm, 8000, channels=2,
+                                    mls_convention="auto", device=dev)
+        check([(f["mode"], f["ok"], f["payload"]) for f in out]
+              == [(6, True, want)], f"decode-all auto convention: {conv}")
+        res = auto_dec.decode(wav.read_wav(path).analytic, channels=2)
+        check(res.ok and res.payload == want,
+              f"Decoder(mls_convention='auto') on {conv}: {res.status}")
+        print(f"decode-all conventions: golden_mode6_{conv}.wav byte-exact "
+              "through decode_recording_auto and Decoder under 'auto'")
+    fib = os.path.join(ROOT, "tests", "data", "golden_mode6_fibonacci.wav")
+    galois_only = Decoder(8000, device=dev).decode(
+        wav.read_wav(fib).analytic, channels=2)
+    out = decode_recording_auto(wav.read_wav_raw(fib), 8000, channels=2,
+                                device=dev)
+    check(not galois_only.ok and not any(f["ok"] for f in out),
+          "a galois-only receiver decoded the fibonacci recording")
+    print(f"decode-all conventions: a galois-only receiver rejects the "
+          f"fibonacci recording ({galois_only.status!r}; decode-all "
+          f"{[f['status'] for f in out]})")
+
+    # -- 13.4 the impaired chain at the demonstrated -30 dB point
+    rng = np.random.default_rng(HOUR_SEED)
+    payload = rng.integers(0, 256, cfg.mode.data_bytes,
+                           dtype=np.uint8).tobytes()
+    w, _ = Encoder(cfg, device=dev).encode_batch([payload],
+                                                  B.base37_encode(CALL))
+    sil = np.zeros(cfg.rate, np.complex64)
+    clean = np.concatenate([sil, w[0].cpu().numpy(), sil])
+    impaired = channel.reference_chain(
+        clean, 8000, rng=np.random.default_rng(IMPAIRED_SEED)).astype(
+        np.complex64)
+    out = decode_recording_auto(impaired, 8000, channels=2, adaptive=True,
+                                device=dev)
+    check([(f["mode"], f["ok"], f["payload"]) for f in out]
+          == [(6, True, payload)], "decode-all: impaired frame")
+    summary["impaired_flips"] = out[0]["flips"]
+    print(f"decode-all impaired: multipath x10, cfo 234.567 Hz, sfo 147 "
+          f"ppm, awgn -30 dB: byte-exact, {out[0]['flips']} bit flips, "
+          f"mean Es/N0 {float(np.mean(out[0]['snr'])):.2f} dB")
+
+    entries = [
+        {"name": "sc_decode[decode-all]", "route": "cuda",
+         "source": "modem_tpu_torch/csrc/sc_decode.cu",
+         "replaces": "modem_tpu/kernels/scl_pallas.py:1732",
+         "launches": summary["hour"]["launches_A"]
+         + summary["auto adaptive"]["launches_A"],
+         "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain,
+         **kernel_bound(plan6.sched, len(llrs_a), 1), "library_ms": None,
+         "shape": list(llrs_a.shape)},
+        {"name": "scl_decode[decode-all]", "route": "cuda",
+         "source": "modem_tpu_torch/csrc/scl_decode.cu",
+         "replaces": "modem_tpu/kernels/scl_pallas.py:1732",
+         "launches": summary["auto exact"]["launches_B"]
+         + summary["auto adaptive"]["launches_B"]
+         + summary["hour"]["launches_B"],
+         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain,
+         **kernel_bound(pipe_b.plan.sched, len(llrs_b), LIST_SIZE, True),
+         "library_ms": None, "shape": list(llrs_b.shape)}]
+    check(entries[0]["launches"] > 0 and entries[1]["launches"] > 0,
+          "decode-all: kernel A or B never launched")
+    return summary, entries
 
 
 def main() -> int:
@@ -1157,6 +1459,13 @@ def main() -> int:
     print("probe launches, each probe's timing run: D "
           f"{d_launches}, E {e_launches}, F {f_launches}")
 
+    # ---- 13. decode-all ----------------------------------------------------
+    t0 = time.perf_counter()
+    decode_all_summary, decode_all_entries = decode_all(dev, reset_counts)
+    check(not any(option_counts().values()),
+          f"the decode-all path launched {option_counts()}")
+    print(f"decode-all: phase in {time.perf_counter() - t0:.1f} s on {card}")
+
     sched = plan.sched
     kernels = [
         {"name": "sc_decode", "route": "cuda",
@@ -1195,7 +1504,8 @@ def main() -> int:
          "library_ms": None, "shape": [FALLBACK_BATCH, sched.code_len],
          "ms_1": list_ms["C", 1][0], "plain_ms_1": list_ms["C", 1][1],
          "bound_ms_1": kernel_bound(sched, 1, LIST_SIZE, False)["bound_ms"],
-         "escalation_launches": esc_c_launches[2], **main_tier}] + options
+         "escalation_launches": esc_c_launches[2], **main_tier}] + \
+        decode_all_entries + options
     for k in kernels:
         print(f"bound {k['name']} at {k['shape']}: {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}: {k['bytes']} bytes, {k['operations']} "
@@ -1209,7 +1519,7 @@ def main() -> int:
         "escalation_recovered": saved, "escalation_recovered_fast": saved_c,
         "escalation_ms": esc_ms, "decoder_s": dec_s,
         "decoder_stage_ms": stage_ms, "override_us_per_row": per_row_us,
-        "unroll_ladder": ladder}))
+        "unroll_ladder": ladder, "decode_all": decode_all_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

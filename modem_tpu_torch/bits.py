@@ -120,29 +120,57 @@ crc16 = Crc(CRC16_POLY, 16)
 crc32 = Crc(CRC32_POLY, 32)
 
 
+# Every convention generates the m-sequence of its primitive
+# polynomial; they differ only in the phase at which seed 1 enters the
+# cycle, which the MLS0 carrier pattern, the MLS1 header scrambler and
+# the MLS2 pilot all transmit.  Encoder and decoder share the generator
+# (encode.cc:144 <-> decode.cc:238), so the convention is a setting
+# (ModemConfig.mls_convention) that the receiver can also detect from
+# the preamble.
+MLS_CONVENTIONS = ("galois", "fibonacci", "msb")
+
+
 def mls_bits(poly: int, count: int, seed: int = 1,
              convention: str = "galois") -> np.ndarray:
     """LFSR m-sequence over the primitive polynomial ``poly`` (bit i =
     coefficient of x^i), register seeded ``seed``, one bit per step.
 
-    Only the "galois" convention (right-shift Galois, output = LSB
-    before the shift, feedback XORs ``poly >> 1`` when the output bit is
-    1) is carried by the port so far.
+    * ``galois``    right-shift Galois, output = LSB before the shift,
+      feedback XORs ``poly >> 1`` when the output bit is 1;
+    * ``fibonacci`` right-shift Fibonacci, output = LSB, new top bit =
+      parity of the tapped state (taps = ``poly`` minus its leading term);
+    * ``msb``       left-shift Galois, output = top register bit before
+      the shift (seed 1 leads with deg-1 zeros; mls.hh's operator()).
     """
-    if convention != "galois":
-        raise NotImplementedError(
-            f"MLS convention {convention!r}: the port carries 'galois' only")
     deg = poly.bit_length() - 1
     mask = (1 << deg) - 1
     reg = seed & mask
-    taps = (poly >> 1) & mask
     out = np.empty(count, dtype=np.uint8)
-    for i in range(count):
-        bit = reg & 1
-        out[i] = bit
-        reg >>= 1
-        if bit:
-            reg ^= taps
+    if convention == "galois":
+        taps = (poly >> 1) & mask
+        for i in range(count):
+            bit = reg & 1
+            out[i] = bit
+            reg >>= 1
+            if bit:
+                reg ^= taps
+    elif convention == "fibonacci":
+        taps = poly & mask
+        top = 1 << (deg - 1)
+        for i in range(count):
+            out[i] = reg & 1
+            fb = bin(reg & taps).count("1") & 1
+            reg = (reg >> 1) | (top if fb else 0)
+    elif convention == "msb":
+        test = 1 << (deg - 1)
+        for i in range(count):
+            fb = 1 if reg & test else 0
+            out[i] = fb
+            reg = (reg << 1) & mask
+            if fb:
+                reg ^= poly & mask
+    else:
+        raise ValueError(f"unknown MLS convention {convention!r}")
     return out
 
 

@@ -7,7 +7,7 @@ a batched serving decoder consumes; all frames synthesise in one batched
 IFFT pass (ofdm.synthesize).  The time-differential PSK accumulation
 across payload rows (encode.cc:304-308) is a cumulative sum of phases
 over the row axis, exact for unit-modulus PSK factors.  The continuous
-multi-frame ``encode`` and PCM16 output are not ported yet.
+multi-frame ``encode`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -93,9 +93,6 @@ class Encoder:
         if cfg.mls_convention == "auto":
             raise ValueError("mls_convention='auto' is receive-only; "
                              "a transmitter must commit to one")
-        if cfg.mls_convention != "galois":
-            raise NotImplementedError(
-                "the port's encoder carries the 'galois' convention only")
         self.cfg = cfg
         self.device = torch.device(device)
         mode = cfg.mode

@@ -1,0 +1,156 @@
+"""PCM ingest: quantised WAV samples -> analytic signal on the device.
+
+Counterpart of ``modem_tpu/ingest.py`` (reference: decode.cc:294-301,
+which dequantises each sample on the host, then runs BlockDC and the
+Hilbert filter for mono input).  A :class:`PcmRecording` keeps the
+samples in their wire dtype (int16 or uint8); they go to the device once
+(:meth:`PcmRecording.on`), and the dequantise, DC block and Hilbert
+front end runs there chunk by chunk inside the synchroniser's scan
+(``sync.Synchronizer.scan``) and on the header and frame windows, so no
+whole-recording analytic array is made.
+
+Chunk exactness: a chunk carries ``front_lead`` raw samples of left
+context (at least dc_window + taps, rounded up to the scan's 512-sample
+block), so every DC mean and Hilbert sum covers the same samples as a
+pass over the whole recording, and the DC count is clamped against the
+absolute recording index.  The host spec is
+:meth:`PcmRecording.analytic_np`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import dsp
+from .sync import _BLK, window_sum
+
+
+@dataclasses.dataclass(eq=False)
+class PcmRecording:
+    """Raw PCM samples in wire dtype (decode.cc:294-301 ingest).
+
+    data: [T] mono or [T, 2] stereo, numpy or torch; int16 (bits=16) or
+    uint8 (bits=8)."""
+
+    data: np.ndarray | torch.Tensor
+    bits: int
+    rate: int
+
+    def __post_init__(self):
+        if self.bits not in (8, 16):
+            raise ValueError(f"unsupported bit depth {self.bits}")
+        want = {8: (np.uint8, torch.uint8), 16: (np.int16, torch.int16)}[
+            self.bits]
+        if self.data.dtype not in want:
+            raise ValueError(f"bits={self.bits} requires dtype "
+                             f"{want[0].__name__}, got {self.data.dtype}")
+        self._device_copy: dict = {}
+
+    @property
+    def channels(self) -> int:
+        return 1 if self.data.ndim == 1 else self.data.shape[1]
+
+    @property
+    def n_samples(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def shape(self) -> tuple:
+        """The samples' shape: [T] or [T, 2], T leading as for an
+        analytic recording."""
+        return tuple(self.data.shape)
+
+    @property
+    def fill(self) -> int:
+        """Quantised silence: 128 for uint8, 0 for int16."""
+        return 128 if self.bits == 8 else 0
+
+    def on(self, device) -> torch.Tensor:
+        """The samples as a wire-dtype tensor on ``device``, copied there
+        once and kept (the recording is treated as immutable)."""
+        device = torch.device(device)
+        key = str(device)
+        t = self._device_copy.get(key)
+        if t is None:
+            data = self.data
+            if isinstance(data, np.ndarray):
+                if not data.flags.writeable:
+                    data = data.copy()
+                data = torch.from_numpy(np.ascontiguousarray(data))
+            t = data.to(device)
+            self._device_copy[key] = t
+        return t
+
+    def dequant_np(self) -> np.ndarray:
+        """Host dequantisation (wav._dequantize semantics)."""
+        data = np.asarray(self.data)
+        if self.bits == 8:
+            return (data.astype(np.float32) - 128.0) / 127.0
+        return data.astype(np.float32) / 32767.0
+
+    def analytic_np(self, dc_window: int, taps: int) -> np.ndarray:
+        """Host-numpy spec front end -> [T, 2] f32 split-complex.
+
+        Mono: dequantise, DC block (sliding mean, f64 accumulation), FIR
+        Hilbert with a (taps-1)//2 real-path delay.  Stereo: dequantise."""
+        x = self.dequant_np()
+        if self.channels == 2:
+            return np.ascontiguousarray(x)
+        x = x.reshape(-1)
+        c = np.cumsum(np.concatenate([[0.0], x]).astype(np.float64))
+        n = x.shape[0]
+        idx = np.arange(n)
+        lo = np.maximum(idx - dc_window + 1, 0)
+        cnt = np.minimum(idx + 1, dc_window)
+        y = (x - (c[idx + 1] - c[lo]) / cnt).astype(np.float32)
+        h = dsp.hilbert_taps(taps)
+        d = (taps - 1) // 2
+        yp = np.concatenate([np.zeros(taps - 1, np.float32), y])
+        im = np.convolve(yp, h, mode="valid")[:n].astype(np.float32)
+        re = np.concatenate([np.zeros(d, np.float32), y])[:n]
+        return np.stack([re, im], axis=-1)
+
+
+def front_lead(dc_window: int, taps: int) -> int:
+    """Raw left-context samples a mono chunk needs ahead of its first
+    analytic output, rounded up to the 512-sample block so chunk starts
+    keep their absolute block alignment."""
+    return -(-(dc_window + taps) // _BLK) * _BLK
+
+
+def dequant(raw: torch.Tensor, bits: int) -> torch.Tensor:
+    """Dequantisation bit for bit as wav._dequantize: (x - 128) / 127
+    for uint8, x / 32767 for int16, in f32."""
+    if bits == 8:
+        return (raw.to(torch.float32) - 128.0) / 127.0
+    return raw.to(torch.float32) / 32767.0
+
+
+def analytic_chunk(raw: torch.Tensor, abs0, lead: int, out_len: int,
+                   bits: int, dc_window: int, taps: int) -> torch.Tensor:
+    """Mono PCM chunks [..., N] -> complex64 analytic [..., out_len].
+
+    Row r's first raw sample sits at absolute recording index abs0[r]
+    (an int or a tensor of the leading shape; negative where the caller
+    padded the span before the recording with quantised silence), and
+    output j is absolute index abs0 + lead + j.  ``lead`` must cover the
+    DC window and the Hilbert taps (:func:`front_lead`).  The DC count
+    clamps against the true recording start (the sliding mean over
+    min(n + 1, dc_window) samples, decode.cc:386)."""
+    x = dequant(raw, bits)
+    s = window_sum(x, dc_window)
+    abs0 = torch.as_tensor(abs0, device=raw.device)
+    absi = abs0[..., None] + torch.arange(x.shape[-1], device=raw.device)
+    cnt = (absi + 1).clamp(1, dc_window).to(torch.float32)
+    y = x - s / cnt
+    h = torch.from_numpy(dsp.hilbert_taps(taps)).to(raw.device)
+    d = (taps - 1) // 2
+    # im[n] = sum_k h[k] y[n - k] for n = lead + j
+    span = y[..., lead - (taps - 1): lead + out_len]
+    im = span.unfold(-1, taps, 1) @ h.flip(0)
+    re = y[..., lead - d: lead - d + out_len]
+    return torch.complex(re, im)
+

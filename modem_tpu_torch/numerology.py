@@ -110,8 +110,7 @@ class ModemConfig:
     mls1_len: int = MLS1_LEN
     mls1_poly: int = MLS1_POLY
     # LFSR convention for MLS0/MLS1/MLS2 ("galois", "fibonacci", "msb";
-    # "auto" detects it on receive): part of the wire format.  The
-    # port's pipeline and encoder take "galois" so far.
+    # "auto" detects it on receive): part of the wire format.
     mls_convention: str = "galois"
 
     # -- OFDM numerology (encode.cc:31-32) ---------------------------------

@@ -21,12 +21,22 @@ its results equal ``BatchPipeline(list_size=8)``'s (with the same
 ``scl_exact``) on any batch.  Tensors stay on ``device`` (the card by
 default; ``device="cpu"`` runs the kernels' plain versions) from the
 recordings to the packed result.
+
+Both also decode every frame of one long recording
+(``decode_recording``: the chunked Schmitt scan, then one window per
+preamble, all decoded as one batch), and :func:`decode_recording_auto`
+decodes a recording of frames of any mode (and, under
+``mls_convention="auto"``, any LFSR convention): one scan, one batch of
+headers, then one windowed decode per (mode, convention) group.  A
+recording may be an ``ingest.PcmRecording`` in wire dtype, whose front
+end runs on the device.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import time
 
 import numpy as np
 import torch
@@ -93,10 +103,8 @@ class BatchPipeline:
         if mls_convention == "auto":
             raise ValueError(
                 "BatchPipeline needs a committed mls_convention (the "
-                "batch path knows its framing)")
-        if mls_convention != "galois":
-            raise NotImplementedError(
-                "the port's pipeline carries the 'galois' convention only")
+                "batch path knows its framing); decode_recording_auto and "
+                "Decoder detect it")
         mode = mode_spec if mode_spec is not None else MODES[oper_mode]
         self.cfg = cfg = ModemConfig(
             rate=rate, mode=mode, freq_off=0,
@@ -231,6 +239,55 @@ class BatchPipeline:
         p0, cfo_rad, snr [B, rows], flips, sync_gate, multiframe."""
         return self._fec_select(self.demod(recordings))
 
+    def frame_windows(self, x, max_frames: int = 64):
+        """Scan a recording (analytic, or an ``ingest.PcmRecording``) and
+        cut one window per detected frame: :meth:`windows_at` at the
+        positions of the candidates that pass the sync gates."""
+        x = self.sync.recording(x)
+        cands = [c for c in self.sync.scan(x, max_candidates=max_frames)
+                 if c.ok]
+        return self.windows_at(x, [c.p0 for c in cands])
+
+    def windows_at(self, x, positions):
+        """One frame window per preamble position p0: samples
+        [p0 - (2s + g), p0 + frame_samples + g // 2) of ``x`` (analytic,
+        or a PcmRecording through the device front end), zero outside
+        the recording.  Returns (windows [n, w] complex64 on the device,
+        positions int64 [n]).
+
+        The lead 2s + g holds the pilot symbol before the S&C: the
+        timing metric's peak needs L + match_len samples of window-sum
+        history, and a lead of s + g leaves L + g, one sample short at
+        8 kHz (g = 160 < match_len = 161).  The window runs through the
+        frame's last payload sample, stopping before the next frame's
+        preamble, so the batch path's global argmax sees one preamble;
+        the g // 2 past it covers a p0 that the fine stage resolves up
+        to g / 2 late (|pos_err| <= g / 2, decode.cc:143-145), which
+        would otherwise clamp the payload slice."""
+        cfg = self.cfg
+        s, g = cfg.symbol_len, cfg.guard_len
+        w = cfg.frame_samples + 2 * s + g // 2
+        pos = np.asarray([int(p) for p in positions], dtype=np.int64)
+        return self.sync.windows(self.sync.recording(x), pos - (2 * s + g),
+                                 w), pos
+
+    def decode_windows(self, wins) -> dict:
+        """Decode pre-cut frame windows [n, w] as one batch (the JAX
+        package pads the batch for its kernel's cell size; every frame
+        decodes on its own here, so the n results are the same)."""
+        return self.decode_batch(wins)
+
+    def decode_recording(self, x, max_frames: int = 64):
+        """Find and decode every frame of one long recording: the
+        Schmitt-trigger scan locates the preambles (decode.cc:390-448),
+        then all frames decode as one batch.  Returns (the
+        :meth:`decode_batch` dict, or None when no frame was found;
+        positions [n_frames])."""
+        wins, pos = self.frame_windows(x, max_frames)
+        if not len(pos):
+            return None, pos
+        return self.decode_windows(wins), pos
+
     def payload_bytes(self, result, i: int) -> bytes:
         bits = result["bits"][i]
         if isinstance(bits, torch.Tensor):
@@ -364,6 +421,25 @@ class AdaptivePipeline:
     def payload_bytes(self, result, i: int) -> bytes:
         return self.sc.payload_bytes(result, i)
 
+    # window cutting is the SC sub-pipeline's (the same configuration)
+    def frame_windows(self, x, max_frames: int = 64):
+        return self.sc.frame_windows(x, max_frames)
+
+    def windows_at(self, x, positions):
+        return self.sc.windows_at(x, positions)
+
+    def decode_windows(self, wins) -> dict:
+        """Decode pre-cut frame windows adaptively: the host dict."""
+        return self.decode_batch(wins)
+
+    def decode_recording(self, x, max_frames: int = 64):
+        """Find and decode every frame of one long recording, adaptively
+        (the analogue of :meth:`BatchPipeline.decode_recording`)."""
+        wins, pos = self.frame_windows(x, max_frames)
+        if not len(pos):
+            return None, pos
+        return self.decode_windows(wins), pos
+
 
 @functools.lru_cache(maxsize=None)
 def cached_pipeline(rate: int, oper_mode: int, list_size: int = 8,
@@ -383,3 +459,94 @@ def cached_adaptive_pipeline(rate: int, oper_mode: int, list_size: int = 8,
     return AdaptivePipeline(rate, oper_mode, list_size,
                             mls_convention=mls_convention, device=device,
                             scl_unroll=scl_unroll)
+
+
+def decode_recording_auto(x, rate: int, channels: int = 2,
+                          max_frames: int = 64,
+                          mls_convention: str = "galois",
+                          adaptive: bool = False, device: str = "cuda",
+                          stats: dict | None = None) -> list:
+    """Decode every frame of a recording of any mode, with the reference
+    decoder's semantics on the serving path: each frame's mode and call
+    sign come from its BCH(255,71) + OSD header (decode.cc:398-446), the
+    frames group by mode (and, under ``mls_convention="auto"``, by the
+    detected LFSR convention), and each group decodes as one batch.
+
+    ``x``: complex [T], [T, 2] float I/Q, real mono [T] with
+    ``channels == 1``, or an ``ingest.PcmRecording`` (wire dtype to the
+    device once, the front end there).  ``adaptive``: each group through
+    :class:`AdaptivePipeline` (SC kernel A on every frame, the list
+    decoder on the CRC failures) instead of the list decoder
+    (:class:`BatchPipeline`, kernel B) on every frame; the results are
+    the same on anything either decodes.  ``stats``: a dict that gets
+    the wall milliseconds of the stages (``scan_ms``, ``headers_ms``,
+    ``windows_ms``, ``payload_ms``, each ending in a device
+    synchronise) and the scan's chunk count (``chunks``).
+
+    Returns a time-ordered list of one dict a preamble that passed the
+    sync gates: {pos, mode, call_sign, ok, payload, flips, snr, status},
+    status "ok" or "payload decoding error."; a preamble whose header
+    failed has mode None and the reference's rejection text."""
+    from .decoder import cached_decoder
+    from .ingest import PcmRecording
+
+    dec = cached_decoder(rate, mls_convention=mls_convention, device=device)
+    t0 = time.perf_counter()
+
+    def lap(key: str, **extra) -> None:
+        """Wall ms since the last lap, ending in a device synchronise."""
+        nonlocal t0
+        if stats is None:
+            return
+        if dec.device.type == "cuda":
+            torch.cuda.synchronize(dec.device)
+        now = time.perf_counter()
+        stats[key] = (now - t0) * 1e3
+        stats.update(extra)
+        t0 = now
+
+    if not isinstance(x, PcmRecording):
+        x = dec.frontend(x, channels)
+    cands = [c for c in dec.sync.scan(x, max_candidates=max_frames)
+             if c.ok]
+    lap("scan_ms", chunks=dec.sync.last_chunks)
+    frames = []          # (pos, mode, call, convention)
+    rejects = []
+    for c, (hdr, status) in zip(cands, dec.decode_headers_batch(x, cands)):
+        if hdr is None:
+            rejects.append(dict(pos=int(c.p0), mode=None, call_sign="",
+                                ok=False, payload=b"", flips=None,
+                                snr=None, status=status))
+            continue
+        oper_mode, call = hdr
+        frames.append((c.p0, oper_mode, B.base37_decode(call).lstrip(),
+                       dec.sync.conventions[c.conv]))
+    lap("headers_ms")
+    groups: dict[tuple, list[int]] = {}
+    for i, (_p, mode, _c, conv) in enumerate(frames):
+        groups.setdefault((mode, conv), []).append(i)
+    factory = cached_adaptive_pipeline if adaptive else cached_pipeline
+    cut = []
+    for (mode, conv), idxs in groups.items():
+        pipe = factory(rate, mode, mls_convention=conv, device=device)
+        wins, _ = pipe.windows_at(x, [frames[i][0] for i in idxs])
+        cut.append((pipe, idxs, wins))
+    lap("windows_ms")
+    results = [None] * len(frames)
+    for pipe, idxs, wins in cut:
+        res = pipe.fetch(pipe.decode_windows(wins))
+        for j, i in enumerate(idxs):
+            results[i] = (pipe, res, j)
+    lap("payload_ms")
+    out = []
+    for (p0, mode, call, _conv), (pipe, res, j) in zip(frames, results):
+        ok = bool(res["ok"][j])
+        out.append(dict(pos=int(p0), mode=mode, call_sign=call, ok=ok,
+                        payload=pipe.payload_bytes(res, j),
+                        flips=int(res["flips"][j]),
+                        snr=np.asarray(res["snr"][j]),
+                        status="ok" if ok else "payload decoding error."))
+    out.extend(rejects)
+    out.sort(key=lambda f: f["pos"])
+    return out
+

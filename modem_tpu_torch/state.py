@@ -31,7 +31,9 @@ class PipelineState:
     array.  Shapes: frozen uint8 [code_len]; schedule int32 [n_ops, 14];
     crc_matrix f32 [crc_bits, 32]; mls0_kernel complex64 [L];
     pilot_fdom and sc_fdom complex64 [symbol_len]; mls1_seq f32
-    [mls1_len] (+/-1)."""
+    [mls1_len] (+/-1).  A receiver of every convention (``"auto"``)
+    holds one row per convention: mls0_kernel [K, L], mls1_seq
+    [K, mls1_len]."""
 
     frozen: torch.Tensor | None = None
     schedule: torch.Tensor | None = None
@@ -63,8 +65,9 @@ def state_from_numpy(device="cpu", **arrays) -> PipelineState:
     fields of :class:`PipelineState`.
 
     ``mls0_kernel`` may be split-complex: the JAX synchroniser keeps its
-    kernels as ``kerns`` [K, L, 2] with one row per MLS convention; give
-    the row of the convention in use."""
+    kernels as ``kerns`` [K, L, 2], one row per MLS convention, which
+    passes whole (and its JAX ``Decoder._mls1_seqs`` [K, mls1_len] as
+    ``mls1_seq``), or one row of it for a committed convention."""
     unknown = set(arrays) - set(ARRAYS)
     if unknown:
         raise TypeError(f"unknown state arrays {sorted(unknown)}")
@@ -78,18 +81,24 @@ def state_from_numpy(device="cpu", **arrays) -> PipelineState:
 
 
 def build_state(cfg: ModemConfig, device="cpu") -> PipelineState:
-    """The port's own builders for every array of ``cfg``'s state."""
+    """The port's own builders for every array of ``cfg``'s state.  Under
+    ``mls_convention="auto"`` (receive only) the MLS0 kernels and MLS1
+    scramblers of every convention, and no transmit spectra."""
     # imported here: both modules take their default state from this one
     from .encoder import encoder_spectra
-    from .sync import mls0_kernel
+    from .sync import conventions, mls0_kernel
 
     mode = cfg.mode
     code = PolarCode(n=mode.cons_bits, k=mode.crc_bits,
                      order=mode.code_order)
     sched = build_schedule(code.frozen.tobytes(), emit_spc=True)
-    spectra = encoder_spectra(cfg)
+    if cfg.mls_convention == "auto":
+        spectra = dict(mls1_seq=np.stack([
+            B.mls_nrz(cfg.mls1_poly, cfg.mls1_len, convention=c)
+            for c in conventions(cfg)]))
+    else:
+        spectra = encoder_spectra(cfg)
     return state_from_numpy(
         device=device, frozen=code.frozen, schedule=sched.ops,
         crc_matrix=B.crc32.check_matrix(mode.crc_bits).astype(np.float32),
-        mls0_kernel=mls0_kernel(cfg), pilot_fdom=spectra["pilot_fdom"],
-        sc_fdom=spectra["sc_fdom"], mls1_seq=spectra["mls1_seq"])
+        mls0_kernel=mls0_kernel(cfg), **spectra)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's serving decode on one GPU.
 
-Two modes, one process each (run from the root of a checkout):
+Five modes, one process each (run from the root of a checkout):
 
   python3 profile_card.py [--out FILE]
       kernel B (list-8) ms at 1, 16, 64, 132 and 264 frames; the
@@ -34,6 +34,22 @@ Two modes, one process each (run from the root of a checkout):
       unpacked with git archive; the same C interface), both versions'
       outputs held equal and timed in turns in this one process (this,
       that, that, this; three times).
+
+  python3 profile_card.py --decode-all [--out FILE]
+      pipeline.decode_recording_auto on chip_smoke.py's two decode-all
+      recordings (the hour of int16 audio, adaptive; the 64 frames of
+      modes 6-13, exact): a warm-up run, then one run under
+      torch.profiler: its wall and stage split, its device time (kernel
+      events) and idle share, the largest kernels by device time and the
+      host ops by their own CPU time (synchronising copies included).
+
+  python3 profile_card.py --sync-gate [--out FILE]
+      the synchroniser's gate (peak > 4 * next) at each sample rate: a
+      mode-6 frame and a frame of another mode, 2,000 samples apart,
+      made by the port's encoder on the CPU from seeded payloads (the
+      recordings of tests/test_torch_card.py's every-rate test), as
+      noiseless complex64 and as 16-bit I/Q PCM; each candidate's p0,
+      gate and peak ratio from the scan on the CPU and on the card.
 
 Prints the card's name and power limit and a JSON summary, also
 written to FILE (default build/profile_card.json).
@@ -336,16 +352,7 @@ def serve_profile(dev) -> dict:
         loop()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            kernels.append((us, e.key, e.count))
-    kernels.sort(reverse=True)
+    kernels = device_kernels(prof)
     device_s = sum(k[0] for k in kernels) / 1e6
     out["profiled_wall_ms_per_batch"] = wall * 1e3 / batches
     out["profiled_device_ms_per_batch"] = device_s * 1e3 / batches
@@ -364,12 +371,125 @@ def serve_profile(dev) -> dict:
     return out
 
 
+def device_kernels(prof) -> list:
+    """(device us, name, count) of every CUDA kernel event, largest
+    first."""
+    out = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            out.append((us, e.key, e.count))
+    return sorted(out, reverse=True)
+
+
+def decode_all_profile(dev) -> dict:
+    """decode_recording_auto on the hour and on the 64 frames: one run
+    each under the profiler, after a warm-up run."""
+    from modem_tpu_torch.ingest import PcmRecording
+    from modem_tpu_torch.kernels import sc_decode as sc_mod
+    from modem_tpu_torch.kernels import scl_decode as scl_mod
+    from modem_tpu_torch.pipeline import decode_recording_auto
+    from torch.profiler import ProfilerActivity, profile
+
+    cs.build_all({"sc_decode": sc_mod._library,
+                  "scl_decode": scl_mod._library})
+    hour, _, _ = cs.hour_recording(dev)
+    auto, _ = cs.auto_recording(dev)
+    out = {}
+    for label, pcm, kw in (("hour", hour, dict(channels=1, adaptive=True)),
+                           ("auto exact", auto,
+                            dict(channels=1, adaptive=False))):
+        def fresh():
+            return PcmRecording(data=pcm.data, bits=pcm.bits, rate=pcm.rate)
+        decode_recording_auto(fresh(), 8000, device=dev, **kw)
+        stats = {}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode_recording_auto(fresh(), 8000, device=dev, stats=stats,
+                                  **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = device_kernels(prof)
+        device_s = sum(k[0] for k in kernels) / 1e6
+        host = sorted(((e.self_cpu_time_total, e.key, e.count)
+                       for e in prof.key_averages()
+                       if e.self_cpu_time_total > 0), reverse=True)
+        res = {"stage_ms": stats, "profiled_wall_ms": wall * 1e3,
+               "device_ms": device_s * 1e3,
+               "idle_share": 1 - device_s / wall,
+               "top_kernels_ms": [(us / 1e3, key[:90], n)
+                                  for us, key, n in kernels[:14]],
+               "top_host_ms": [(us / 1e3, key[:60], n)
+                               for us, key, n in host[:14]]}
+        out[label] = res
+        print(f"decode-all {label}: profiled wall {res['profiled_wall_ms']:.1f}"
+              f" ms, device {res['device_ms']:.1f} ms, idle share "
+              f"{res['idle_share'] * 100:.1f} %; stages " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in stats.items()), flush=True)
+        for row in res["top_kernels_ms"]:
+            print(f"  device {row[0]:8.3f} ms  x{row[2]:<6d} {row[1]}")
+        for row in res["top_host_ms"]:
+            print(f"  host   {row[0]:8.3f} ms  x{row[2]:<6d} {row[1]}")
+    return out
+
+
+GATE_RATES = ((8000, 13), (16000, 7), (44100, 10), (48000, 12))
+
+
+def sync_gate(dev) -> dict:
+    """The scan's candidates at every rate, noiseless float and int16
+    PCM, on the CPU and on the card."""
+    from modem_tpu_torch import bits as B
+    from modem_tpu_torch.decoder import cached_decoder
+    from modem_tpu_torch.encoder import Encoder
+    from modem_tpu_torch.ingest import PcmRecording
+    from modem_tpu_torch.numerology import make_config
+
+    out = {}
+    for rate, other in GATE_RATES:
+        rng = np.random.default_rng(rate)
+        gap = torch.zeros(2000, dtype=torch.complex64)
+        parts = [gap]
+        for mode, call in zip((6, other), ("AB1CDE", "N0CALL")):
+            cfg = make_config(rate, mode, 2000)
+            payload = rng.integers(0, 256, cfg.mode.data_bytes,
+                                   dtype=np.uint8).tobytes()
+            wave, _ = Encoder(cfg, device="cpu").encode_batch(
+                [payload], B.base37_encode(call))
+            parts += [wave[0], gap]
+        rec = torch.cat(parts).numpy()
+        iq = np.stack([rec.real, rec.imag], axis=-1)
+        iq = 0.5 * iq / np.abs(iq).max()
+        pcm = np.clip(np.rint(iq * 32767.0), -32768, 32767).astype(np.int16)
+        for kind in ("float", "int16"):
+            for where in ("cpu", dev):
+                x = (rec if kind == "float"
+                     else PcmRecording(data=pcm, bits=16, rate=rate))
+                cands = cached_decoder(rate, device=where).sync.scan(x)
+                key = f"{rate} {kind} {torch.device(where).type}"
+                out[key] = [(c.p0, c.ok, c.peak_ratio) for c in cands]
+                print(f"sync gate {key}: " + ", ".join(
+                    f"p0 {p} {'ok' if ok else 'rejected'} ratio {r:.2f}"
+                    for p, ok, r in out[key]), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", action="store_true",
                     help="per-opcode clock profile of both kernels")
     ap.add_argument("--list", action="store_true",
                     help="kernels B and C at [16] and [1]")
+    ap.add_argument("--sync-gate", action="store_true",
+                    help="the sync gate at every rate, CPU and card")
+    ap.add_argument("--decode-all", action="store_true",
+                    help="decode_recording_auto under the profiler")
     ap.add_argument("--against", default=None,
                     help="with --list: another checkout to time in turns")
     ap.add_argument("--out", default=str(ROOT / "build" /
@@ -386,6 +506,10 @@ def main() -> int:
         res = row_profile(dev)
     elif args.list:
         res = list_times(dev, args.against)
+    elif args.decode_all:
+        res = decode_all_profile(dev)
+    elif args.sync_gate:
+        res = sync_gate(dev)
     else:
         res = serve_profile(dev)
     res = {"card": card, **res}

@@ -9,6 +9,7 @@ imports jax):
     python -m pytest --noconftest -m cuda tests/test_torch_card.py -q
 """
 
+import dataclasses
 import functools
 import os
 import wave
@@ -32,8 +33,11 @@ from modem_tpu_torch.kernels.scl_decode import (LIST_BUDGET,
                                                 list_tiers, make_decoder,
                                                 scl_decode,
                                                 scl_decode_reference)
-from modem_tpu_torch.numerology import toy_config
-from modem_tpu_torch.pipeline import AdaptivePipeline, BatchPipeline
+from modem_tpu_torch.ingest import PcmRecording
+from modem_tpu_torch.numerology import make_config, toy_config
+from modem_tpu_torch.pipeline import (AdaptivePipeline, BatchPipeline,
+                                      decode_recording_auto)
+from modem_tpu_torch.sync import Synchronizer
 from modem_tpu_torch.probes import interleave, p256, rank3
 
 # (n, k, order, sigma) as tests/test_torch_sc_decode.py and
@@ -570,3 +574,115 @@ def test_list_wide_leaf_of_infinite_llrs(cuda_device, spc):
         cw_r, pm_r = scl_decode_reference(llrs, plan.sched, 8, exact)
         assert torch.equal(cw.cpu(), cw_r), exact
         assert torch.allclose(pm.cpu(), pm_r, rtol=1e-5, atol=1e-3), exact
+
+
+# -- decode-all ------------------------------------------------------------
+
+def two_mode_recording(rate: int, modes, seed: int = 9):
+    """A recording of one frame of each mode in ``modes`` (call signs
+    AB1CDE and N0CALL in turn) made by the port's encoder, 2000 samples
+    of silence around and between them, complex64; with seed 9 and
+    modes (10, 12) the payloads of tests/test_multiframe.py's mixed-mode
+    recording.  Returns (recording, [(mode, call sign, payload)])."""
+    rng = np.random.default_rng(seed)
+    gap = torch.zeros(2000, dtype=torch.complex64)
+    parts, sent = [gap], []
+    for mode, call in zip(modes, ("AB1CDE", "N0CALL")):
+        cfg = make_config(rate, mode, 2000)
+        payload = rng.integers(0, 256, cfg.mode.data_bytes,
+                               dtype=np.uint8).tobytes()
+        wave_, _ = Encoder(cfg, device="cpu").encode_batch(
+            [payload], B.base37_encode(call))
+        parts += [wave_[0], gap]
+        sent.append((mode, call, payload))
+    return torch.cat(parts).numpy(), sent
+
+
+def int16_pcm(rec: np.ndarray, stereo: bool = True, bits: int = 16,
+              rate: int = 8000):
+    """A recording scaled to half of full scale and quantised as a WAV
+    holds it (wav._quantize): I/Q pairs, or the real part in mono."""
+    x = np.stack([rec.real, rec.imag], axis=-1) if stereo else rec.real
+    x = 0.5 * x / np.abs(x).max()
+    if bits == 16:
+        q = np.clip(np.rint(x * 32767.0), -32768, 32767).astype(np.int16)
+    else:
+        q = (np.clip(np.rint(x * 127.0), -128, 127) + 128).astype(np.uint8)
+    return PcmRecording(data=q, bits=bits, rate=rate)
+
+
+def same_frames(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert set(a) == set(b)
+        for key in a:
+            if key != "snr":
+                assert a[key] == b[key], key
+        assert np.allclose(a["snr"], b["snr"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_decode_recording_auto_on_card(cuda_device, adaptive):
+    """decode_recording_auto on the card equals its CPU run on the
+    modes-10/12 recording (every key; snr within 1e-4), through kernel A
+    then B (adaptive) or B alone."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec, sent = two_mode_recording(8000, (10, 12))
+    before = sc_decode.launches, scl_decode.launches
+    got = decode_recording_auto(rec, 8000, adaptive=adaptive,
+                                device=cuda_device)
+    torch.cuda.synchronize()
+    launched = (sc_decode.launches - before[0],
+                scl_decode.launches - before[1])
+    assert launched == ((2, 0) if adaptive else (0, 2))
+    want = decode_recording_auto(rec, 8000, adaptive=adaptive, device="cpu")
+    same_frames(got, want)
+    assert [(f["mode"], f["call_sign"], f["payload"]) for f in got] == sent
+    assert all(f["ok"] and f["status"] == "ok" for f in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,stereo", [(16, False), (16, True),
+                                         (8, False)])
+def test_pcm_scan_on_card(cuda_device, bits, stereo):
+    """The chunked scan of a PcmRecording on the card: the raw events
+    (edge, n_max) equal the CPU's at two chunk sizes, their phases within
+    1e-5, the candidates' p0 and ok equal and cfo within 1e-5."""
+    rec, _ = two_mode_recording(8000, (10, 12))
+    pcm = int16_pcm(rec, stereo, bits)
+    cfg = dataclasses.replace(make_config(8000, 6), freq_off=0)
+    card = Synchronizer(cfg, cuda_device)
+    host = Synchronizer(cfg, "cpu")
+    for chunk in (card.CHUNK_SMALL, 1 << 14):
+        got = card._events_device(pcm, chunk, 32)
+        want = host._events_device(pcm, chunk, 32)
+        assert [e[:2] for e in got] == [e[:2] for e in want], chunk
+        assert np.allclose([e[2] for e in got], [e[2] for e in want],
+                           atol=1e-5)
+    got, want = card.scan(pcm), host.scan(pcm)
+    assert [(c.p0, c.ok) for c in got] == [(c.p0, c.ok) for c in want]
+    assert sum(c.ok for c in got) == 2
+    assert np.allclose([c.cfo_rad for c in got], [c.cfo_rad for c in want],
+                       atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,other", [(8000, 13), (16000, 7),
+                                        (44100, 10), (48000, 12)])
+def test_decode_all_every_rate_on_card(cuda_device, rate, other):
+    """A mode-6 frame and a frame of another mode at each sample rate,
+    as 16-bit I/Q PCM (decode-all's input), through decode_recording_auto
+    on the card, adaptive and exact: both byte-exact with the right mode
+    and call sign.  (The noiseless float recording is not a fair input
+    at 44.1 and 48 kHz: its out-of-band bins hold only the FFT's
+    rounding residue, and the sync gate's second peak turns on it;
+    ROADMAP queue 3.)"""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec, sent = two_mode_recording(rate, (6, other), seed=rate)
+    pcm = int16_pcm(rec, rate=rate)
+    for adaptive in (True, False):
+        got = decode_recording_auto(pcm, rate, adaptive=adaptive,
+                                    device=cuda_device)
+        assert [(f["mode"], f["call_sign"], f["payload"], f["ok"])
+                for f in got] == [s + (True,) for s in sent], adaptive

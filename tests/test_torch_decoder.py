@@ -358,8 +358,11 @@ def test_decoder_reports_no_preamble(port_decoder):
 def test_decoder_options():
     with pytest.raises(ValueError):
         Decoder(11025, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Decoder(8000, mls_convention="auto", device="cpu")
+    assert Decoder(8000, mls_convention="auto",
+                   device="cpu").sync.conventions == (
+        "galois", "fibonacci", "msb")
+    with pytest.raises(ValueError):
+        Decoder(8000, mls_convention="lsb", device="cpu")
     with pytest.raises(NotImplementedError):
         Decoder(8000, list_size=3, device="cpu")
     dec = Decoder(8000, scl_exact=False, device="cpu")

@@ -70,8 +70,10 @@ def test_encoder_rejects_what_waits():
     with pytest.raises(ValueError):
         Encoder(dataclasses.replace(cfg, mls_convention="auto"),
                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        Encoder(dataclasses.replace(cfg, mls_convention="msb"),
+    assert Encoder(dataclasses.replace(cfg, mls_convention="msb"),
+                   device="cpu").cfg.mls_convention == "msb"
+    with pytest.raises(ValueError):
+        Encoder(dataclasses.replace(cfg, mls_convention="lsb"),
                 device="cpu")
     with pytest.raises(ValueError):
         Encoder(cfg, device="cpu").mesg_bits(b"short")

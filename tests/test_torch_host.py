@@ -83,8 +83,13 @@ def test_mls_matches(poly, count):
 
 
 def test_mls_other_conventions_wait():
-    with pytest.raises(NotImplementedError):
-        bits.mls_bits(numerology.MLS0_POLY, 8, convention="msb")
+    """The other conventions are ported (tests/test_torch_mls.py holds
+    all three); an unknown one raises as in the JAX package."""
+    assert np.array_equal(
+        bits.mls_bits(numerology.MLS0_POLY, 8, convention="msb"),
+        jbits.mls_bits(numerology.MLS0_POLY, 8, convention="msb"))
+    with pytest.raises(ValueError):
+        bits.mls_bits(numerology.MLS0_POLY, 8, convention="lsb")
 
 
 @pytest.mark.parametrize("text", ["N0CALL", "toy", "A B", "a!b", ""])
@@ -182,3 +187,31 @@ def test_polar_code_takes_given_mask():
     assert np.array_equal(code.frozen, mask)
     with pytest.raises(ValueError):
         polar.PolarCode(224, 144, 8, frozen=mask[:-1])
+
+
+@pytest.mark.parametrize("rate", [8000, 16000, 44100, 48000])
+@pytest.mark.parametrize("convention", ["galois", "msb", "auto"])
+def test_receiver_geometry_matches(rate, convention):
+    """The PCM front end's DC window, taps and raw lead, and the
+    synchroniser's conventions, as the JAX synchroniser sets them."""
+    import dataclasses
+
+    from modem_tpu.ingest import front_lead as jax_front_lead
+    from modem_tpu.sync import Synchronizer as JaxSynchronizer
+    from modem_tpu_torch.ingest import front_lead
+    from modem_tpu_torch.sync import Synchronizer, mls0_kernel
+
+    cfg = dataclasses.replace(numerology.make_config(rate, 6), freq_off=0,
+                              mls_convention=convention)
+    jcfg = dataclasses.replace(jnum.make_config(rate, 6), freq_off=0,
+                               mls_convention=convention)
+    port, ref = Synchronizer(cfg, "cpu"), JaxSynchronizer(jcfg)
+    assert (port.dc_window, port.taps, port.front_lead) == (
+        ref.dc_window, ref.taps, ref.front_lead)
+    assert front_lead(port.dc_window, port.taps) == jax_front_lead(
+        ref.dc_window, ref.taps)
+    assert port.conventions == ref.conventions
+    kern = mls0_kernel(cfg)
+    assert kern.shape == ((3, port.L) if convention == "auto" else (port.L,))
+    assert np.allclose(kern.reshape(-1, port.L),
+                       ref.kerns[..., 0] + 1j * ref.kerns[..., 1], atol=1e-6)

@@ -33,7 +33,9 @@ def test_every_module_is_listed():
                  "modem_tpu_torch.kernels.unroll", "modem_tpu_torch.card",
                  "modem_tpu_torch.probes", "modem_tpu_torch.probes.p256",
                  "modem_tpu_torch.probes.rank3",
-                 "modem_tpu_torch.probes.interleave"):
+                 "modem_tpu_torch.probes.interleave",
+                 "modem_tpu_torch.wav", "modem_tpu_torch.ingest",
+                 "modem_tpu_torch.channel"):
         assert name in mods
 
 

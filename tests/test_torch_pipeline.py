@@ -172,8 +172,8 @@ def test_strided_sync_matches_full_rate(batches):
 def test_options_that_wait_raise():
     with pytest.raises(NotImplementedError):
         toy_port(list_size=3)
-    with pytest.raises(NotImplementedError):
-        toy_port(mls_convention="fibonacci")
+    assert toy_port(mls_convention="fibonacci").sync.conventions == (
+        "fibonacci",)
     with pytest.raises(ValueError):
         toy_port(mls_convention="auto")
 

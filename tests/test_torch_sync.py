@@ -62,6 +62,19 @@ def test_window_sum_does_not_drift():
     assert np.allclose(got[640:], np.float32(0.1) * 640, rtol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [(1,), (9,), (3, 50), (2, 3, 4096)])
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.5, 1.0])
+def test_last_true_is_a_running_max(shape, density):
+    """sync.last_true equals the running maximum (cummax) of the true
+    indices, with the fill where none is true yet."""
+    rng = np.random.default_rng(len(shape) * 100 + int(density * 100))
+    mask = torch.from_numpy(rng.random(shape) < density)
+    idx = torch.arange(shape[-1]).expand(shape)
+    for fill in (-2, torch.tensor(-1)):
+        want = torch.where(mask, idx, fill).cummax(-1)[0]
+        assert torch.equal(sync.last_true(mask, fill), want)
+
+
 def test_constants_match(pair):
     port, ref = pair
     assert (port.L, port.match_len, port.match_del) == \

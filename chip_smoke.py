@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (modem_tpu_torch) on one GPU.
 
-Drives the port's three paths as a user would, with every kernel built
+Drives the port's paths as a user would, with every kernel built
 from csrc/ by nvcc: the serving decode, AdaptivePipeline(8000, 6,
 device="cuda") on batches of 512 mode-6 recordings made by the port's
 own encoder (every frame through the SC kernel A, the frames whose CRC
@@ -10,7 +10,8 @@ interactive Decoder(8000, device="cuda") on whole recordings of every
 mode (sync scan, OSD header, all-pairs payload demod, list decode with B
 or C), and decode-all, pipeline.decode_recording_auto on int16 PCM (the
 scan and its front end on the card, one header batch, one windowed
-decode a mode group: A then B, or B alone).
+decode a mode group: A then B, or B alone), live decoding
+(stream.StreamDecoder fed 1 s at a time) and the command line.
 
 Phases:
   1. the card's name and power limit (nvidia-smi);
@@ -98,7 +99,23 @@ Phases:
      plain versions; the three golden WAVs read in wire dtype and
      decoded under "auto" (and by Decoder(mls_convention="auto")), a
      galois-only receiver rejecting the fibonacci one; one mode-6 frame
-     through channel.reference_chain (-30 dB) decoded byte-exact.
+     through channel.reference_chain (-30 dB) decoded byte-exact;
+ 14. stream and CLI (each drive with the counts at 0 just before): the
+     hour of phase 13 through stream.StreamDecoder(8000, channels=1,
+     bits=16) in 1 s feeds, 12/12 byte-exact and equal to phase 13's
+     decode_recording_auto (snr within 1e-4), one launch of B a frame,
+     the samples held within buffer_bound, no feed over 1 s; wall s,
+     real-time factor, median, longest and emitting feed ms, chunks,
+     peak device memory; bench/stream_bench.py's 16 mode-6 frames (the
+     port's Encoder.encode, seed 0) after a warm-up, in 1 s feeds and in
+     one feed, 16/16 both ways; B at the stream's [1, 65536] against its
+     plain version; the command line as subprocesses (python3 -m
+     modem_tpu_torch.cli): the Makefile's smoke (encode, decode,
+     compare), decode-all and decode-all --adaptive on a two-frame WAV,
+     decode-stream PREFIX - through a pipe 1 s at a time with the first
+     payload file written while stdin is open; then the same decodes
+     through cli.main in this process for the launches of A and B, and
+     A and B at decode-all's [2, 65536] against their plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Prints a
 JSON line of kernel results (each kernel's time, its plain version's,
@@ -159,6 +176,8 @@ HOUR_SEED = 7
 PER_MODE = 8                 # frames of each mode 6-13 in the auto recording
 AUTO_SEED = 3
 IMPAIRED_SEED = 2            # tests/test_channel.py's reference chain
+STREAM_FRAMES = 16           # bench/stream_bench.py's default, seed 0
+CLI_SEED = 21
 
 
 def check(cond, msg: str) -> None:
@@ -443,7 +462,7 @@ def decode_all(dev, reset_counts, hour_samples: int = HOUR_SAMPLES,
     print(f"decode-all hour: {hour_samples} samples of mono int16 at 8 kHz "
           f"({hour.data.nbytes / 1e6:.1f} MB), {hour_frames} mode-6 frames, "
           f"made in {time.perf_counter() - t0:.1f} s")
-    out = drive("hour", hour, channels=1, adaptive=True)
+    out = hour_out = drive("hour", hour, channels=1, adaptive=True)
     got = [(f["mode"], f["call_sign"], f["ok"], f["payload"]) for f in out]
     offsets = {f["pos"] - int(s0) for f, s0 in zip(out, starts)}
     check(got == [(6, CALL, True, p) for p in payloads],
@@ -592,7 +611,359 @@ def decode_all(dev, reset_counts, hour_samples: int = HOUR_SAMPLES,
          "library_ms": None, "shape": list(llrs_b.shape)}]
     check(entries[0]["launches"] > 0 and entries[1]["launches"] > 0,
           "decode-all: kernel A or B never launched")
+    return summary, entries, (hour, hour_out, payloads)
+
+
+def same_frames(got, want) -> bool:
+    """Frame dicts equal on every key but snr, snr within 1e-4."""
+    exact = ("pos", "mode", "call_sign", "ok", "payload", "flips", "status")
+    return len(got) == len(want) and all(
+        [a[k] for k in exact] == [b[k] for k in exact]
+        and np.allclose(a["snr"], b["snr"], rtol=0, atol=1e-4)
+        for a, b in zip(got, want))
+
+
+def buffer_bound(sd, frame_samples: int, feed: int) -> int:
+    """The most samples a StreamDecoder may hold after a feed, from its
+    retirement rule (stream.StreamDecoder._retire): the span back to the
+    oldest pending p0 (a frame waiting for its payload, at most a frame
+    span; or a future event, at most c + 3L + 2g behind the end), its
+    windows' lead 2s + 2g, a block, the mono front end's lead, and the
+    feed itself."""
+    cfg = sd.cfg
+    s, g = cfg.symbol_len, cfg.guard_len
+    return (max(frame_samples, sd.c + 3 * sd.L + 2 * g) + 2 * s + 2 * g
+            + 512 + sd.lead + feed)
+
+
+def cli_run(args, label: str, **kw):
+    """python3 -m modem_tpu_torch.cli ARGS in a subprocess on the card;
+    returns (completed process, wall s)."""
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "modem_tpu_torch.cli"]
+                          + args, cwd=ROOT, capture_output=True, timeout=300,
+                          **kw)
+    wall = time.perf_counter() - t0
+    check(done.returncode == 0, f"cli {label}: rc {done.returncode}: "
+          f"{done.stderr.decode(errors='replace')[-2000:]}")
+    print(f"cli {label}: rc 0 in {wall:.2f} s")
+    return done, wall
+
+
+def stream_bench_pcm(dev, frames: int | None = None):
+    """bench/stream_bench.py's recording: ``frames`` (STREAM_FRAMES)
+    mode-6 frames of seeded payloads (seed 0) in one transmission of the
+    port's Encoder.encode on ``dev``, 1 s of silence either side, mono
+    int16 at 8 kHz.  Returns (samples, payloads)."""
+    from modem_tpu_torch import bits as B
+    from modem_tpu_torch.encoder import Encoder
+    from modem_tpu_torch.numerology import make_config
+
+    rng = np.random.default_rng(0)
+    payloads = [rng.integers(0, 256, 5380, dtype=np.uint8).tobytes()
+                for _ in range(frames or STREAM_FRAMES)]
+    wave_, _ = Encoder(make_config(8000, 6, 2000, 1), device=dev).encode(
+        payloads, B.base37_encode(CALL))
+    sil = np.zeros(8000, np.complex64)
+    rec = np.concatenate([sil, wave_, sil]).real
+    return (np.clip(np.rint(rec * 32767), -32768, 32767).astype(np.int16),
+            payloads)
+
+
+def stream_and_cli(dev, reset_counts, hour, hour_ref, hour_payloads):
+    """Phase 14: live decoding (stream.StreamDecoder) and the command line
+    (modem_tpu_torch.cli) on the card.  Returns (summary dict, kernel
+    entries for B on the stream, A and B on the CLI)."""
+    import shutil
+    import threading
+
+    from modem_tpu_torch import cli, wav
+    from modem_tpu_torch.kernels.sc_decode import (sc_decode,
+                                                   sc_decode_reference)
+    from modem_tpu_torch.kernels.scl_decode import (scl_decode,
+                                                    scl_decode_reference)
+    from modem_tpu_torch.numerology import make_config
+    from modem_tpu_torch.pipeline import (cached_adaptive_pipeline,
+                                          cached_pipeline)
+    from modem_tpu_torch.stream import StreamDecoder
+
+    cfg = make_config(8000, 6, 2000, 1)
+    summary = {}
+
+    def live(label, pcm, feed):
+        """Stream ``pcm`` in blocks of ``feed`` samples (feed 0: all in
+        one), every count at 0 just before, read just after; each feed's
+        wall ms ends in a device synchronise."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_counts()
+        sd = StreamDecoder(8000, channels=1, bits=16, device=dev)
+        step = feed or len(pcm)
+        got, feed_ms, emit_ms = [], [], []
+        t0 = time.perf_counter()
+        for i in range(0, len(pcm), step):
+            tf = time.perf_counter()
+            out = sd.feed(pcm[i: i + step])
+            torch.cuda.synchronize()
+            feed_ms.append((time.perf_counter() - tf) * 1e3)
+            if out:
+                emit_ms.append(round(feed_ms[-1], 3))
+            got += out
+        tf = time.perf_counter()
+        got += sd.finish()
+        torch.cuda.synchronize()
+        finish_ms = (time.perf_counter() - tf) * 1e3
+        wall = time.perf_counter() - t0
+        stats = dict(
+            audio_s=len(pcm) / 8000, wall_s=wall,
+            realtime_x=len(pcm) / 8000 / wall, feeds=len(feed_ms),
+            median_feed_ms=float(np.median(feed_ms)),
+            longest_feed_ms=max(feed_ms), emission_ms=emit_ms,
+            finish_ms=finish_ms, chunks=sd.chunks,
+            launches_A=sc_decode.launches, launches_B=scl_decode.launches,
+            launches_C=scl_decode.fast_launches,
+            peak_buffered=sd.peak_buffered,
+            buffer_bound=buffer_bound(sd, cfg.frame_samples, step),
+            peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+            peak_rise_mib=(torch.cuda.max_memory_allocated() - held)
+            / 2 ** 20)
+        summary[label] = stats
+        print(f"stream {label}: {stats['audio_s']:.0f} s of audio in "
+              f"{stats['feeds']} feeds: wall {wall:.3f} s, "
+              f"{stats['realtime_x']:.1f}x real time; feed ms median "
+              f"{stats['median_feed_ms']:.3f}, longest "
+              f"{stats['longest_feed_ms']:.3f}, finish {finish_ms:.3f}; "
+              f"emitting feeds (ms) {emit_ms}; {sd.chunks} chunks; "
+              f"launches A {stats['launches_A']}, B {stats['launches_B']}, "
+              f"C {stats['launches_C']}; buffered at most "
+              f"{sd.peak_buffered} samples (bound {stats['buffer_bound']}); "
+              f"peak device memory {stats['peak_mib']:.0f} MiB, "
+              f"{stats['peak_rise_mib']:.0f} MiB over the run's start")
+        check(sd.peak_buffered <= stats["buffer_bound"],
+              f"stream {label}: buffer over its bound")
+        check(not feed or stats["longest_feed_ms"] < 1000.0,
+              f"stream {label}: a 1 s feed took over 1 s: the stream "
+              "falls behind a live source")
+        check(stats["launches_C"] == 0 and stats["launches_A"] == 0,
+              f"stream {label}: launched kernel A or C")
+        return sorted(got, key=lambda f: f["pos"]), stats
+
+    # -- 14.1 the live hour: phase 13's PCM, 1 s feeds
+    got, stats = live("hour", hour.data, 8000)
+    n = len(hour_payloads)
+    check([(f["mode"], f["call_sign"], f["ok"], f["payload"]) for f in got]
+          == [(6, CALL, True, p) for p in hour_payloads],
+          f"stream hour: {sum(f['ok'] for f in got)} of {n} frames ok")
+    check(same_frames(got, hour_ref),
+          "stream hour: frames differ from decode_recording_auto's")
+    check(stats["launches_B"] == n, "stream hour: not one B launch a frame")
+    print(f"stream hour: {n}/{n} frames byte-exact, mode 6, {CALL}, equal "
+          "to decode_recording_auto (snr within 1e-4)")
+
+    # B at the stream's shape: one frame, [1, 65536]
+    pipe_b = cached_pipeline(8000, 6, device=dev)
+    wins, _ = pipe_b.windows_at(hour, [got[0]["pos"]])
+    llrs_b = pipe_b.demod(wins)["llrs"]
+    cw_k, pm_k = scl_decode(llrs_b, pipe_b.plan, LIST_SIZE, True)
+    cw_r, pm_r = scl_decode_reference(llrs_b, pipe_b.plan.sched, LIST_SIZE,
+                                      True)
+    check(torch.equal(cw_k, cw_r) and torch.allclose(
+        pm_k, pm_r, rtol=PM_RTOL, atol=0.0),
+        "stream: kernel B differs from its plain version")
+    b_err = float((pm_k - pm_r).abs().max())
+    b_ms, b_plain = kernel_vs_plain_ms(
+        lambda: scl_decode(llrs_b, pipe_b.plan, LIST_SIZE, True),
+        lambda: scl_decode_reference(llrs_b, pipe_b.plan.sched, LIST_SIZE,
+                                     True), 5)
+    print(f"stream B at [1, 65536]: codewords and lane order equal, max "
+          f"|pm diff| {b_err}; {b_ms:.3f} ms vs plain {b_plain:.1f} ms")
+
+    # -- 14.2 bench/stream_bench.py's geometry: 16 mode-6 frames, seed 0
+    pcm, payloads = stream_bench_pcm(dev)
+    live("bench warm-up", pcm, 8000)
+    replays = {}
+    for label, feed in (("bench", 8000), ("bench one feed", 0)):
+        got, _ = live(label, pcm, feed)
+        check([(f["ok"], f["payload"]) for f in got]
+              == [(True, p) for p in payloads],
+              f"stream {label}: {sum(f['ok'] for f in got)} of "
+              f"{STREAM_FRAMES} frames byte-exact")
+        replays[label] = got
+    check(same_frames(replays["bench"], replays["bench one feed"]),
+          "stream bench: 1 s feeds and one feed differ")
+    print(f"stream bench: {STREAM_FRAMES}/{STREAM_FRAMES} frames byte-exact "
+          "in 1 s feeds and in one feed")
+
+    # -- 14.3 the command line: subprocesses as a user runs them, then the
+    # same commands in this process to count the launches
+    work = os.path.join(ROOT, "build", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(CLI_SEED)
+    data = [rng.integers(0, 256, 5380, dtype=np.uint8).tobytes()
+            for _ in range(3)]
+    inputs = [os.path.join(work, f"in{i}.dat") for i in range(3)]
+    for name, payload in zip(inputs, data):
+        with open(name, "wb") as f:
+            f.write(payload)
+    path = lambda name: os.path.join(work, name)  # noqa: E731
+
+    def read(name):
+        with open(path(name), "rb") as f:
+            return f.read()
+
+    walls = {}
+    # the reference's smoke (Makefile:12-20)
+    _, walls["encode"] = cli_run(
+        ["encode", path("encoded.wav"), "8000", "8", "1", "2000", "6", CALL,
+         inputs[0]], "encode (Makefile smoke)")
+    done, walls["decode"] = cli_run(
+        ["decode", path("decoded.dat"), path("encoded.wav")],
+        "decode (Makefile smoke)")
+    check(read("decoded.dat") == data[0], "cli smoke: payload differs")
+    print("cli smoke: decoded.dat equals uncoded.dat; transcript tail "
+          f"{done.stderr.decode().splitlines()[-1]!r}")
+    _, walls["encode two"] = cli_run(
+        ["encode", path("two.wav"), "8000", "16", "1", "2000", "6", CALL,
+         inputs[1], inputs[2]], "encode two frames")
+    for flag in ([], ["--adaptive"]):
+        label = "decode-all" + "".join(" " + f for f in flag)
+        prefix = path("all" + "".join(flag))
+        _, walls[label] = cli_run(["decode-all"] + flag
+                                  + [prefix, path("two.wav")], label)
+        check([read(prefix + f".{i:03d}") for i in range(2)] == data[1:],
+              f"cli {label}: payloads differ")
+    walls["decode-stream"], first_at = pipe_stream(path("two.wav"),
+                                                   path("live"), cfg)
+    check([read(f"live.{i:03d}") for i in range(2)] == data[1:],
+          "cli decode-stream: payloads differ")
+
+    launches = {}
+    for label, argv in (
+            ("decode", ["decode", path("p.dat"), path("encoded.wav")]),
+            ("decode-all", ["decode-all", path("p_all"), path("two.wav")]),
+            ("decode-all --adaptive", ["decode-all", "--adaptive",
+                                       path("p_ad"), path("two.wav")]),
+            ("decode-stream", ["decode-stream", path("p_live"),
+                               path("two.wav")])):
+        reset_counts()
+        rc = cli.main(argv, device=dev)
+        torch.cuda.synchronize()
+        launches[label] = (sc_decode.launches, scl_decode.launches,
+                           scl_decode.fast_launches)
+        check(rc == 0, f"cli.main {label}: rc {rc}")
+    print(f"cli launches in this process (A, B, C): {launches}")
+    check(launches["decode"] == (0, 1, 0)
+          and launches["decode-all"] == (0, 1, 0)
+          and launches["decode-all --adaptive"] == (1, 0, 0)
+          and launches["decode-stream"][0] == 0
+          and launches["decode-stream"][1] >= 1,
+          "cli: the decodes did not go through A and B as expected")
+
+    # A and B at the CLI's shapes: decode-all's two frames, [2, 65536]
+    pipe = cached_adaptive_pipeline(8000, 6, device=dev)
+    two = wav.read_wav_raw(path("two.wav"))
+    frames = pipe.sc.sync.scan(two)
+    wins, _ = pipe.windows_at(two, [c.p0 for c in frames if c.ok])
+    llrs = pipe.sc.demod(wins)["llrs"]
+    cw_k, pm_k = sc_decode(llrs, pipe.sc.plan)
+    cw_r, pm_r = sc_decode_reference(llrs, pipe.sc.plan.sched)
+    check(torch.equal(cw_k, cw_r) and torch.allclose(
+        pm_k, pm_r, rtol=PM_RTOL, atol=0.0),
+        "cli: kernel A differs from its plain version")
+    a_err = float((pm_k - pm_r).abs().max())
+    a_ms, a_plain = kernel_vs_plain_ms(
+        lambda: sc_decode(llrs, pipe.sc.plan),
+        lambda: sc_decode_reference(llrs, pipe.sc.plan.sched), 10)
+    cw_k, pm_k = scl_decode(llrs, pipe.scl.plan, LIST_SIZE, True)
+    cw_r, pm_r = scl_decode_reference(llrs, pipe.scl.plan.sched, LIST_SIZE,
+                                      True)
+    check(torch.equal(cw_k, cw_r) and torch.allclose(
+        pm_k, pm_r, rtol=PM_RTOL, atol=0.0),
+        "cli: kernel B differs from its plain version")
+    c_err = float((pm_k - pm_r).abs().max())
+    c_ms, c_plain = kernel_vs_plain_ms(
+        lambda: scl_decode(llrs, pipe.scl.plan, LIST_SIZE, True),
+        lambda: scl_decode_reference(llrs, pipe.scl.plan.sched, LIST_SIZE,
+                                     True), 5)
+    print(f"cli A at [{len(llrs)}, 65536]: {a_ms:.3f} ms vs plain "
+          f"{a_plain:.1f} ms, max |pm diff| {a_err}; B: {c_ms:.3f} ms vs "
+          f"plain {c_plain:.1f} ms, max |pm diff| {c_err}")
+    summary["cli_wall_s"] = walls
+    summary["cli_first_payload_s"] = first_at
+    summary["cli_launches"] = {k: list(v) for k, v in launches.items()}
+
+    entries = [
+        {"name": "scl_decode[stream]", "route": "cuda",
+         "source": "modem_tpu_torch/csrc/scl_decode.cu",
+         "replaces": "modem_tpu/kernels/scl_pallas.py:1732",
+         "launches": summary["hour"]["launches_B"]
+         + summary["bench"]["launches_B"]
+         + summary["bench one feed"]["launches_B"],
+         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain,
+         **kernel_bound(pipe_b.plan.sched, 1, LIST_SIZE, True),
+         "library_ms": None, "shape": list(llrs_b.shape)},
+        {"name": "sc_decode[cli]", "route": "cuda",
+         "source": "modem_tpu_torch/csrc/sc_decode.cu",
+         "replaces": "modem_tpu/kernels/scl_pallas.py:1732",
+         "launches": sum(v[0] for v in launches.values()),
+         "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain,
+         **kernel_bound(pipe.sc.plan.sched, len(llrs), 1),
+         "library_ms": None, "shape": list(llrs.shape)},
+        {"name": "scl_decode[cli]", "route": "cuda",
+         "source": "modem_tpu_torch/csrc/scl_decode.cu",
+         "replaces": "modem_tpu/kernels/scl_pallas.py:1732",
+         "launches": sum(v[1] for v in launches.values()),
+         "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain,
+         **kernel_bound(pipe.scl.plan.sched, len(llrs), LIST_SIZE, True),
+         "library_ms": None, "shape": list(llrs.shape)}]
+    shutil.rmtree(work, ignore_errors=True)
     return summary, entries
+
+
+def pipe_stream(wav_path: str, prefix: str, cfg):
+    """``decode-stream PREFIX -`` in a subprocess fed through a pipe 1 s
+    at a time: the first frame's payload file must appear while stdin is
+    still open (written through the end of frame 0 plus 3 s, then
+    waiting).  Returns (wall s, s until the first file appeared)."""
+    with open(wav_path, "rb") as f:
+        raw = f.read()
+    head = raw.index(b"data") + 8
+    block = 8000 * 2                                  # 1 s of mono int16
+    first_end = 8000 + cfg.extended_len + cfg.frame_samples
+    upto = head + (first_end // 8000 + 4) * block
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "modem_tpu_torch.cli", "decode-stream",
+         prefix, "-"], cwd=ROOT, stdin=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    try:
+        proc.stdin.write(raw[:head])
+        for i in range(head, upto, block):
+            proc.stdin.write(raw[i: i + block])
+            proc.stdin.flush()
+        first = prefix + ".000"
+        deadline = time.perf_counter() + 240
+        while not os.path.exists(first) and proc.poll() is None \
+                and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        first_at = time.perf_counter() - t0
+        live_ok = os.path.exists(first)
+        _, err = proc.communicate(raw[upto:], timeout=240)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli decode-stream: rc {proc.returncode}: "
+          f"{err.decode(errors='replace')[-2000:]}")
+    check(live_ok, "cli decode-stream: no payload file before stdin closed")
+    print(f"cli decode-stream through a pipe: rc 0 in {wall:.2f} s; "
+          f"{prefix}.000 written {first_at:.2f} s after start, with "
+          f"{(upto - head) // block} of {(len(raw) - head) // block} s sent "
+          "and stdin open")
+    return wall, first_at
 
 
 def main() -> int:
@@ -1461,10 +1832,19 @@ def main() -> int:
 
     # ---- 13. decode-all ----------------------------------------------------
     t0 = time.perf_counter()
-    decode_all_summary, decode_all_entries = decode_all(dev, reset_counts)
+    decode_all_summary, decode_all_entries, hour = decode_all(dev,
+                                                              reset_counts)
     check(not any(option_counts().values()),
           f"the decode-all path launched {option_counts()}")
     print(f"decode-all: phase in {time.perf_counter() - t0:.1f} s on {card}")
+
+    # ---- 14. stream and CLI ------------------------------------------------
+    t0 = time.perf_counter()
+    stream_summary, stream_entries = stream_and_cli(dev, reset_counts, *hour)
+    check(not any(option_counts().values()),
+          f"the stream and CLI paths launched {option_counts()}")
+    print(f"stream and cli: phase in {time.perf_counter() - t0:.1f} s on "
+          f"{card}")
 
     sched = plan.sched
     kernels = [
@@ -1505,7 +1885,7 @@ def main() -> int:
          "ms_1": list_ms["C", 1][0], "plain_ms_1": list_ms["C", 1][1],
          "bound_ms_1": kernel_bound(sched, 1, LIST_SIZE, False)["bound_ms"],
          "escalation_launches": esc_c_launches[2], **main_tier}] + \
-        decode_all_entries + options
+        decode_all_entries + stream_entries + options
     for k in kernels:
         print(f"bound {k['name']} at {k['shape']}: {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}: {k['bytes']} bytes, {k['operations']} "
@@ -1519,7 +1899,8 @@ def main() -> int:
         "escalation_recovered": saved, "escalation_recovered_fast": saved_c,
         "escalation_ms": esc_ms, "decoder_s": dec_s,
         "decoder_stage_ms": stage_ms, "override_us_per_row": per_row_us,
-        "unroll_ladder": ladder, "decode_all": decode_all_summary}))
+        "unroll_ladder": ladder, "decode_all": decode_all_summary,
+        "stream_cli": stream_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

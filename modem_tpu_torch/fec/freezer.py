@@ -45,3 +45,15 @@ def frozen_mask(n: int, k: int, order: int = 16) -> np.ndarray:
     frozen[best_first[k_info:]] = 1
     frozen.flags.writeable = False
     return frozen
+
+
+def mask_to_words(mask: np.ndarray) -> np.ndarray:
+    """Pack a frozen mask into uint32 words, bit i -> word i // 32 bit
+    i % 32 (the layout of the reference's tables, encode.cc:184)."""
+    return np.packbits(mask, bitorder="little").view(np.uint32)
+
+
+def words_to_mask(words: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`mask_to_words`: uint8 bits [32 * len(words)]."""
+    return np.unpackbits(np.asarray(words, dtype=np.uint32).view(np.uint8),
+                         bitorder="little")

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from . import dsp
-from .sync import _BLK, window_sum
+from .sync import _BLK, gather_windows, window_sum
 
 
 @dataclasses.dataclass(eq=False)
@@ -84,6 +84,13 @@ class PcmRecording:
             self._device_copy[key] = t
         return t
 
+    def raw_windows(self, starts, length: int, device) -> torch.Tensor:
+        """Wire-dtype windows [n, length] (or [n, length, 2]), window i
+        covering samples [starts[i], starts[i] + length), quantised
+        silence outside the recording, cut from the device copy."""
+        starts = torch.as_tensor(starts, dtype=torch.int64, device=device)
+        return gather_windows(self.on(device), starts, length, self.fill)
+
     def dequant_np(self) -> np.ndarray:
         """Host dequantisation (wav._dequantize semantics)."""
         data = np.asarray(self.data)
@@ -112,6 +119,73 @@ class PcmRecording:
         im = np.convolve(yp, h, mode="valid")[:n].astype(np.float32)
         re = np.concatenate([np.zeros(d, np.float32), y])[:n]
         return np.stack([re, im], axis=-1)
+
+
+class StreamBuffer:
+    """The samples of a stream received so far, on the host.
+
+    Holds absolute samples [origin, end) in wire dtype (``bits`` 8 or 16;
+    [n] mono or [n, 2] stereo) or, with ``bits=None``, as a complex64
+    analytic signal [n].  It stands where a recording does for
+    ``sync.Synchronizer`` (``windows``, the chunked scan) and the decode
+    stages: ``shape[0]`` is the absolute end of what has been received,
+    and each window is cut on the host and copied to the device alone,
+    so the bytes copied grow with the windows, not with the buffer.
+    Positions before 0 and from ``end`` on read as silence (quantised
+    silence for PCM); positions in [0, origin) have been retired by
+    :meth:`retire`, and reading them raises."""
+
+    def __init__(self, bits: int | None, channels: int):
+        if bits not in (None, 8, 16):
+            raise ValueError(f"unsupported bit depth {bits}")
+        self.bits = bits
+        self.channels = channels
+        if bits is None:
+            self.data = np.zeros(0, np.complex64)
+        else:
+            dt = np.int16 if bits == 16 else np.uint8
+            self.data = np.zeros((0,) if channels == 1 else (0, channels), dt)
+        self.origin = 0
+
+    @property
+    def end(self) -> int:
+        return self.origin + self.data.shape[0]
+
+    @property
+    def shape(self) -> tuple:
+        return (self.end,) + self.data.shape[1:]
+
+    @property
+    def fill(self) -> int:
+        """Silence: 128 for uint8, else 0."""
+        return 128 if self.bits == 8 else 0
+
+    def append(self, x: np.ndarray) -> None:
+        self.data = np.concatenate([self.data, x.astype(self.data.dtype)])
+
+    def retire(self, low: int) -> None:
+        """Drop the samples before absolute index ``low``."""
+        cut = low - self.origin
+        if cut > 0:
+            self.data = self.data[cut:].copy()
+            self.origin += cut
+
+    def raw_windows(self, starts, length: int, device) -> torch.Tensor:
+        """Windows [n, length] (or [n, length, 2]) of absolute samples
+        [starts[i], starts[i] + length), silence outside [0, end), as
+        one tensor on ``device`` in the buffer's dtype."""
+        starts = np.asarray(starts, dtype=np.int64).reshape(-1)
+        out = np.full((len(starts), length) + self.data.shape[1:], self.fill,
+                      self.data.dtype)
+        for i, s0 in enumerate(starts.tolist()):
+            a, b = max(s0, 0), min(s0 + length, self.end)
+            if b <= a:
+                continue
+            if a < self.origin:
+                raise RuntimeError(f"samples [{a}, {self.origin}) of the "
+                                   "stream were retired")
+            out[i, a - s0: b - s0] = self.data[a - self.origin: b - self.origin]
+        return torch.from_numpy(out).to(device)
 
 
 def front_lead(dc_window: int, taps: int) -> int:

@@ -75,6 +75,21 @@ def synthesize(fdom: torch.Tensor, guard_len: int, papr_mask=None):
     symbols with one batched IFFT and emits [guard | symbol] rows with
     the raised-cosine crossfade; the first guard fades in from silence.
     """
+    wave, papr, _head = synthesize_carry(fdom, guard_len, papr_mask)
+    return wave, papr
+
+
+def synthesize_carry(fdom: torch.Tensor, guard_len: int, papr_mask=None,
+                     prev_head: torch.Tensor | None = None):
+    """:func:`synthesize` with the crossfade state explicit.
+
+    ``prev_head``: [..., guard_len] head of the symbol before fdom[..., 0,
+    :] (None: silence, a transmission's start).  Returns (wave, papr,
+    last head), the last head being that of fdom's last symbol: passed
+    to the next call, it lets a long transmission synthesise in chunks
+    with the same samples (the crossfade is the only cross-symbol
+    dependency).
+    """
     n = fdom.shape[-1]
     shaped = improve_papr(fdom)
     if papr_mask is not None:
@@ -86,8 +101,9 @@ def synthesize(fdom: torch.Tensor, guard_len: int, papr_mask=None):
     w = 0.5 * (1.0 - torch.cos(math.pi * x))
     heads = tdom[..., :guard_len]
     tails = tdom[..., n - guard_len:]
-    prev_heads = torch.cat([torch.zeros_like(heads[..., :1, :]),
-                            heads[..., :-1, :]], dim=-2)
+    first = (torch.zeros_like(heads[..., :1, :]) if prev_head is None
+             else prev_head[..., None, :])
+    prev_heads = torch.cat([first, heads[..., :-1, :]], dim=-2)
     guards = prev_heads * (1.0 - w) + tails * w
 
     # per-symbol per-axis PAPR (encode.cc:115-126), as metrics
@@ -95,4 +111,4 @@ def synthesize(fdom: torch.Tensor, guard_len: int, papr_mask=None):
     papr = n * power.amax(dim=-2) / power.sum(dim=-2).clamp(min=1e-30)
 
     wave = torch.cat([guards, tdom], dim=-1)
-    return wave.reshape(*wave.shape[:-2], -1), papr
+    return wave.reshape(*wave.shape[:-2], -1), papr, heads[..., -1, :]

@@ -332,34 +332,41 @@ class Synchronizer:
         return c, ctx
 
     def recording(self, x):
-        """A PcmRecording as it is, anything else through
-        :func:`as_recording` onto the synchroniser's device."""
-        from .ingest import PcmRecording
-        if isinstance(x, PcmRecording):
+        """A PcmRecording or a stream's StreamBuffer as it is, anything
+        else through :func:`as_recording` onto the synchroniser's
+        device."""
+        from .ingest import PcmRecording, StreamBuffer
+        if isinstance(x, (PcmRecording, StreamBuffer)):
             return x
         return as_recording(x, self.device)
 
     def windows(self, x, starts, out_len: int) -> torch.Tensor:
         """Analytic windows [n, out_len], window i covering absolute
         samples [starts[i], starts[i] + out_len) of ``x``, zero outside
-        the recording: cut from an analytic recording [T] on the device,
-        or run through the front end from a PcmRecording's device copy
-        (one transfer, in wire dtype; the span outside the recording
-        read as quantised silence, and mono windows with ``front_lead``
-        raw samples of left context for the DC block and the Hilbert
-        filter)."""
+        the recording: cut from an analytic recording [T] on the device;
+        or from the samples of a PcmRecording (its device copy) or of a
+        stream's StreamBuffer (cut on the host, only the windows copied)
+        in wire dtype, the span outside the recording read as quantised
+        silence, and run through the front end on the device: mono
+        windows with ``front_lead`` raw samples of left context for the
+        DC block and the Hilbert filter, whose DC count clamps at the
+        absolute recording start.  A StreamBuffer of analytic samples
+        (``bits`` None) gives its windows as they are."""
         from . import ingest
-        starts = torch.as_tensor(starts, dtype=torch.int64,
-                                 device=self.device)
         if isinstance(x, torch.Tensor):
+            starts = torch.as_tensor(starts, dtype=torch.int64,
+                                     device=self.device)
             return gather_windows(x, starts, out_len, 0)
+        if x.bits is None:
+            return x.raw_windows(starts, out_len, self.device)
+        starts = torch.as_tensor(starts, dtype=torch.int64)
         mono = x.channels == 1
         lead = self.front_lead if mono else 0
-        raw = gather_windows(x.on(self.device), starts - lead,
-                             lead + out_len, x.fill)
+        raw = x.raw_windows(starts - lead, lead + out_len, self.device)
         if mono:
-            return ingest.analytic_chunk(raw, starts - lead, lead, out_len,
-                                         x.bits, self.dc_window, self.taps)
+            return ingest.analytic_chunk(raw, (starts - lead).to(self.device),
+                                         lead, out_len, x.bits,
+                                         self.dc_window, self.taps)
         iq = ingest.dequant(raw, x.bits)
         return torch.complex(iq[..., 0], iq[..., 1])
 
@@ -405,34 +412,55 @@ class Synchronizer:
         return (edges, idx[e_seg], ph[e_seg], s[-1],
                 (vmax[last], idx[last], ph[last]))
 
+    def scan_start(self):
+        """The scan's carries at the recording start: (Schmitt state, (value,
+        index, phase) of the open collect region), device tensors."""
+        dev = self.device
+        return (torch.tensor(False, device=dev),
+                (torch.tensor(-math.inf, device=dev),
+                 torch.tensor(0, device=dev), torch.tensor(0.0, device=dev)))
+
+    def chunk_step(self, x, n0: int, c: int, ctx: int, carry, n_out: int,
+                   max_edges: int | None = None):
+        """One chunk of the scan, for a caller that walks the chunks itself
+        (the whole-recording scan, a stream): outputs [n0, n0 + c) of
+        ``x`` (analytic [T], a PcmRecording, or a StreamBuffer whose
+        samples start at an absolute origin; ``n0`` is absolute) with
+        ``carry`` from :meth:`scan_start` or the chunk before, (c, ctx)
+        from :meth:`_context`.  Returns ((edge, n_max, phase) of the first
+        ``max_edges`` falling edges of the chunk, edge < n_out, in one
+        small host copy; the carry for the next chunk)."""
+        edges, nmax, ph, state, best = self._chunk_events(x, n0, c, ctx,
+                                                          *carry)
+        events = []
+        if edges.numel():
+            if max_edges is not None:
+                edges, nmax, ph = (v[:max_edges] for v in (edges, nmax, ph))
+            host = torch.stack([edges + n0, nmax]).cpu().numpy()
+            phs = ph.cpu().numpy()
+            for e, nm, q in zip(host[0], host[1], phs):
+                if e < n_out:
+                    events.append((int(e), int(nm), float(q)))
+        return events, (state, best)
+
     def _events_device(self, x, chunk_samples: int, max_edges: int):
         """(edge, n_max, phase[n_max - match_del]) for the first
         ``max_edges`` falling edges, walking the recording (analytic [T]
         or a PcmRecording) chunk by chunk on the synchroniser's device
         with the Schmitt state and the running argmax carried across
-        chunk boundaries; one small host copy a chunk.  Sets
-        ``last_chunks`` to the number of chunks walked."""
+        chunk boundaries (:meth:`chunk_step`).  Sets ``last_chunks`` to
+        the number of chunks walked."""
         n_out = x.shape[0] - 2 * self.L
         self.last_chunks = 0
         if n_out <= 0:
             return []
         c, ctx = self._context(chunk_samples)
-        dev = self.device
-        state = torch.tensor(False, device=dev)
-        best = (torch.tensor(-math.inf, device=dev),
-                torch.tensor(0, device=dev),
-                torch.tensor(0.0, device=dev))
+        carry = self.scan_start()
         events = []
         for n0 in range(0, n_out, c):
             self.last_chunks += 1
-            edges, nmax, ph, state, best = self._chunk_events(
-                x, n0, c, ctx, state, best)
-            if edges.numel():
-                host = torch.stack([edges + n0, nmax]).cpu().numpy()
-                phs = ph.cpu().numpy()
-                for e, nm, q in zip(host[0], host[1], phs):
-                    if e < n_out:
-                        events.append((int(e), int(nm), float(q)))
+            got, carry = self.chunk_step(x, n0, c, ctx, carry, n_out)
+            events += got
             if len(events) >= max_edges:
                 break
         return events[:max_edges]

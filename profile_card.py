@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's serving decode on one GPU.
 
-Five modes, one process each (run from the root of a checkout):
+Six modes, one process each (run from the root of a checkout):
 
   python3 profile_card.py [--out FILE]
       kernel B (list-8) ms at 1, 16, 64, 132 and 264 frames; the
@@ -42,6 +42,12 @@ Five modes, one process each (run from the root of a checkout):
       torch.profiler: its wall and stage split, its device time (kernel
       events) and idle share, the largest kernels by device time and the
       host ops by their own CPU time (synchronising copies included).
+
+  python3 profile_card.py --stream [--out FILE]
+      stream.StreamDecoder fed 1 s (8,000 samples) a feed: the first ten
+      minutes of chip_smoke.py's hour and bench/stream_bench.py's 16
+      frames back to back, each a warm-up run, then one run under
+      torch.profiler, reported as --decode-all's.
 
   python3 profile_card.py --sync-gate [--out FILE]
       the synchroniser's gate (peak > 4 * next) at each sample rate: a
@@ -386,6 +392,43 @@ def device_kernels(prof) -> list:
     return sorted(out, reverse=True)
 
 
+def profiled(label: str, run, stats=None) -> dict:
+    """run() once under torch.profiler (after the caller's warm-up): its
+    wall, its device time (kernel events) and idle share, the largest
+    kernels by device time and the host ops by their own CPU time
+    (synchronising copies included); printed, and returned."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = device_kernels(prof)
+    device_s = sum(k[0] for k in kernels) / 1e6
+    host = sorted(((e.self_cpu_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), reverse=True)
+    res = {"stage_ms": stats or {}, "profiled_wall_ms": wall * 1e3,
+           "device_ms": device_s * 1e3,
+           "idle_share": 1 - device_s / wall,
+           "top_kernels_ms": [(us / 1e3, key[:90], n)
+                              for us, key, n in kernels[:14]],
+           "top_host_ms": [(us / 1e3, key[:60], n)
+                           for us, key, n in host[:14]]}
+    print(f"{label}: profiled wall {res['profiled_wall_ms']:.1f} ms, device "
+          f"{res['device_ms']:.1f} ms, idle share "
+          f"{res['idle_share'] * 100:.1f} %; stages " + ", ".join(
+              f"{k} {v:.1f}" for k, v in res["stage_ms"].items()), flush=True)
+    for row in res["top_kernels_ms"]:
+        print(f"  device {row[0]:8.3f} ms  x{row[2]:<6d} {row[1]}")
+    for row in res["top_host_ms"]:
+        print(f"  host   {row[0]:8.3f} ms  x{row[2]:<6d} {row[1]}")
+    return res
+
+
 def decode_all_profile(dev) -> dict:
     """decode_recording_auto on the hour and on the 64 frames: one run
     each under the profiler, after a warm-up run."""
@@ -393,7 +436,6 @@ def decode_all_profile(dev) -> dict:
     from modem_tpu_torch.kernels import sc_decode as sc_mod
     from modem_tpu_torch.kernels import scl_decode as scl_mod
     from modem_tpu_torch.pipeline import decode_recording_auto
-    from torch.profiler import ProfilerActivity, profile
 
     cs.build_all({"sc_decode": sc_mod._library,
                   "scl_decode": scl_mod._library})
@@ -407,35 +449,41 @@ def decode_all_profile(dev) -> dict:
             return PcmRecording(data=pcm.data, bits=pcm.bits, rate=pcm.rate)
         decode_recording_auto(fresh(), 8000, device=dev, **kw)
         stats = {}
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            decode_recording_auto(fresh(), 8000, device=dev, stats=stats,
-                                  **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kernels = device_kernels(prof)
-        device_s = sum(k[0] for k in kernels) / 1e6
-        host = sorted(((e.self_cpu_time_total, e.key, e.count)
-                       for e in prof.key_averages()
-                       if e.self_cpu_time_total > 0), reverse=True)
-        res = {"stage_ms": stats, "profiled_wall_ms": wall * 1e3,
-               "device_ms": device_s * 1e3,
-               "idle_share": 1 - device_s / wall,
-               "top_kernels_ms": [(us / 1e3, key[:90], n)
-                                  for us, key, n in kernels[:14]],
-               "top_host_ms": [(us / 1e3, key[:60], n)
-                               for us, key, n in host[:14]]}
-        out[label] = res
-        print(f"decode-all {label}: profiled wall {res['profiled_wall_ms']:.1f}"
-              f" ms, device {res['device_ms']:.1f} ms, idle share "
-              f"{res['idle_share'] * 100:.1f} %; stages " + ", ".join(
-                  f"{k} {v:.1f}" for k, v in stats.items()), flush=True)
-        for row in res["top_kernels_ms"]:
-            print(f"  device {row[0]:8.3f} ms  x{row[2]:<6d} {row[1]}")
-        for row in res["top_host_ms"]:
-            print(f"  host   {row[0]:8.3f} ms  x{row[2]:<6d} {row[1]}")
+        out[label] = profiled(
+            f"decode-all {label}",
+            lambda: decode_recording_auto(fresh(), 8000, device=dev,
+                                          stats=stats, **kw), stats)
+    return out
+
+
+STREAM_PROFILE_S = 600      # the hour's first ten minutes
+
+
+def stream_profile(dev) -> dict:
+    """stream.StreamDecoder fed 1 s at a time under the profiler, after a
+    warm-up run: the first STREAM_PROFILE_S seconds of chip_smoke.py's
+    hour, and bench/stream_bench.py's 16 frames back to back."""
+    from modem_tpu_torch.kernels import scl_decode as scl_mod
+    from modem_tpu_torch.stream import StreamDecoder
+
+    cs.build_all({"scl_decode": scl_mod._library})
+    hour, _, _ = cs.hour_recording(dev)
+    bench, _ = cs.stream_bench_pcm(dev)
+
+    def run(pcm):
+        sd = StreamDecoder(8000, channels=1, bits=16, device=dev)
+        got = []
+        for i in range(0, len(pcm), 8000):
+            got += sd.feed(pcm[i: i + 8000])
+        return got + sd.finish()
+
+    out = {}
+    for label, pcm in ((f"hour's first {STREAM_PROFILE_S} s",
+                        hour.data[: STREAM_PROFILE_S * 8000]),
+                       ("16 frames", bench)):
+        frames = run(pcm)
+        out[label] = profiled(f"stream {label}", lambda: run(pcm))
+        out[label]["frames_ok"] = sum(f["ok"] for f in frames)
     return out
 
 
@@ -490,6 +538,8 @@ def main() -> int:
                     help="the sync gate at every rate, CPU and card")
     ap.add_argument("--decode-all", action="store_true",
                     help="decode_recording_auto under the profiler")
+    ap.add_argument("--stream", action="store_true",
+                    help="StreamDecoder in 1 s feeds under the profiler")
     ap.add_argument("--against", default=None,
                     help="with --list: another checkout to time in turns")
     ap.add_argument("--out", default=str(ROOT / "build" /
@@ -508,6 +558,8 @@ def main() -> int:
         res = list_times(dev, args.against)
     elif args.decode_all:
         res = decode_all_profile(dev)
+    elif args.stream:
+        res = stream_profile(dev)
     elif args.sync_gate:
         res = sync_gate(dev)
     else:

@@ -686,3 +686,113 @@ def test_decode_all_every_rate_on_card(cuda_device, rate, other):
                                     device=cuda_device)
         assert [(f["mode"], f["call_sign"], f["payload"], f["ok"])
                 for f in got] == [s + (True,) for s in sent], adaptive
+
+
+# -- stream and CLI ----------------------------------------------------------
+
+def two_frame_mono(seed: int = 31):
+    """Two mode-10 frames (tests/test_torch_stream.py's recording) by the
+    port's continuous encoder, 1 s of silence either side, mono int16."""
+    from modem_tpu_torch.encoder import cached_encoder
+    rng = np.random.default_rng(seed)
+    payloads = [rng.integers(0, 256, 5380, dtype=np.uint8).tobytes()
+                for _ in range(2)]
+    wave_, _ = cached_encoder(make_config(8000, 10, 2300), "cpu").encode(
+        payloads, B.base37_encode("AB1CDE"))
+    sil = np.zeros(8000, np.complex64)
+    rec = np.concatenate([sil, wave_, sil]).real
+    return (np.clip(np.rint(rec * 32767), -32768, 32767).astype(np.int16),
+            payloads)
+
+
+@pytest.mark.cuda
+def test_stream_on_card(cuda_device):
+    """StreamDecoder on the card, fed 1 s at a time, equals
+    decode_recording_auto on the card (every key; snr within 1e-4),
+    with one launch of B a frame and none of A or C."""
+    from modem_tpu_torch.stream import StreamDecoder
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mono, payloads = two_frame_mono()
+    want = decode_recording_auto(PcmRecording(data=mono, bits=16, rate=8000),
+                                 8000, channels=1, device=cuda_device)
+    before = (sc_decode.launches, scl_decode.launches,
+              scl_decode.fast_launches)
+    sd = StreamDecoder(8000, channels=1, bits=16, device=cuda_device)
+    got = []
+    for i in range(0, len(mono), 8000):
+        got += sd.feed(mono[i: i + 8000])
+    got += sd.finish()
+    torch.cuda.synchronize()
+    assert (sc_decode.launches - before[0], scl_decode.launches - before[1],
+            scl_decode.fast_launches - before[2]) == (0, 2, 0)
+    same_frames(sorted(got, key=lambda f: f["pos"]), want)
+    assert [f["payload"] for f in want] == payloads
+
+
+def _cli(args, **kw):
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.run([sys.executable, "-m", "modem_tpu_torch.cli"]
+                          + args, cwd=root, capture_output=True, timeout=600,
+                          **kw)
+
+
+@pytest.mark.cuda
+def test_cli_makefile_smoke_on_card(cuda_device, tmp_path):
+    """The reference's smoke (Makefile:12-20) through the port's CLI on
+    the card: encode one frame to an 8-bit 8 kHz WAV, decode, compare."""
+    payload = np.random.default_rng(12).integers(
+        0, 256, 5380, dtype=np.uint8).tobytes()
+    (tmp_path / "uncoded.dat").write_bytes(payload)
+    enc = _cli(["encode", str(tmp_path / "encoded.wav"), "8000", "8", "1",
+                "2000", "6", "N0CALL", str(tmp_path / "uncoded.dat")])
+    assert enc.returncode == 0, enc.stderr
+    dec = _cli(["decode", str(tmp_path / "decoded.dat"),
+                str(tmp_path / "encoded.wav")])
+    assert dec.returncode == 0, dec.stderr
+    assert (tmp_path / "decoded.dat").read_bytes() == payload
+    assert dec.stderr.decode().splitlines()[-1] == "bit flips: 0"
+
+
+@pytest.mark.cuda
+def test_cli_decode_stream_pipe_on_card(cuda_device, tmp_path):
+    """decode-stream PREFIX - fed through a pipe 1 s at a time: the first
+    frame's payload file appears while stdin is still open."""
+    import subprocess
+    import sys
+    import time
+    from modem_tpu_torch import wav
+    mono, payloads = two_frame_mono()
+    path = str(tmp_path / "two.wav")
+    wav.write_wav(path, mono.astype(np.float32) / 32767.0, 8000, 16, 1)
+    with open(path, "rb") as f:
+        raw = f.read()
+    head = raw.index(b"data") + 8
+    cfg = make_config(8000, 10, 2300)
+    first_end = 8000 + cfg.extended_len + cfg.frame_samples
+    upto = head + (first_end // 8000 + 4) * 16000
+    prefix = str(tmp_path / "live")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "modem_tpu_torch.cli", "decode-stream",
+         prefix, "-"], cwd=root, stdin=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    try:
+        for i in range(0, upto, 16000):
+            proc.stdin.write(raw[i: min(i + 16000, upto)])
+            proc.stdin.flush()
+        deadline = time.time() + 300
+        while (not os.path.exists(prefix + ".000") and proc.poll() is None
+               and time.time() < deadline):
+            time.sleep(0.05)
+        live = os.path.exists(prefix + ".000")
+        _, err = proc.communicate(raw[upto:], timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err
+    assert live
+    for i, p in enumerate(payloads):
+        assert open(f"{prefix}.{i:03d}", "rb").read() == p

@@ -112,6 +112,21 @@ def test_frozen_mask_matches(n, k, order):
                           jfreezer.frozen_mask(n, k, order))
 
 
+@pytest.mark.parametrize("n,k", [(64800, 43072), (64512, 43072),
+                                 (224, 144)])
+def test_mask_words_match(n, k):
+    """The table packing of the freezer command: uint32 words as the JAX
+    package packs them, and back."""
+    order = 16 if n > 1024 else 8
+    mask = freezer.frozen_mask(n, k, order)
+    words = freezer.mask_to_words(mask)
+    assert words.dtype == np.uint32 and len(words) == len(mask) // 32
+    assert np.array_equal(words, jfreezer.mask_to_words(mask))
+    assert np.array_equal(freezer.words_to_mask(words), mask)
+    assert np.array_equal(freezer.words_to_mask(words),
+                          jfreezer.words_to_mask(words))
+
+
 def test_bch_encode_matches():
     rng = np.random.default_rng(3)
     for _ in range(4):

@@ -35,7 +35,8 @@ def test_every_module_is_listed():
                  "modem_tpu_torch.probes.rank3",
                  "modem_tpu_torch.probes.interleave",
                  "modem_tpu_torch.wav", "modem_tpu_torch.ingest",
-                 "modem_tpu_torch.channel"):
+                 "modem_tpu_torch.channel", "modem_tpu_torch.stream",
+                 "modem_tpu_torch.cli"):
         assert name in mods
 
 

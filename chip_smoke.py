@@ -115,7 +115,22 @@ Phases:
      decode-stream PREFIX - through a pipe 1 s at a time with the first
      payload file written while stdin is open; then the same decodes
      through cli.main in this process for the launches of A and B, and
-     A and B at decode-all's [2, 65536] against their plain versions.
+     A and B at decode-all's [2, 65536] against their plain versions;
+ 15. multi-device (modem_tpu_torch.parallel; each drive with the counts
+     at 0 just before): an NCCL group of one rank in this process (a
+     FileStore group; make_mesh must refuse a CPU device on it):
+     sharded_decode_batched on phase 6's 512 recordings with
+     BatchPipeline(8000, 6, list_size=1) (kernel A at [512, 65536]) and on
+     16 of them with BatchPipeline(8000, 6) (kernel B at [16, 65536]),
+     then sharded_decode_recording on phase 13's hour (B at [12]), each
+     equal to the single-device decode on bits, ok and flips, every frame
+     byte-exact, the hour's positions equal to decode_recording's; wall ms
+     of each beside the single-device one, and all_gather_rows' ms; then
+     four gloo ranks spawned on this card (parallel.run_ranks; NCCL
+     refuses two ranks on one GPU) decoding the hour, equal on every rank,
+     with each rank's chunks of the sharded scan; then
+     parallel.dryrun_multichip(2, "gloo", "cuda"); A and B at every shape
+     of the phase against their plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Prints a
 JSON line of kernel results (each kernel's time, its plain version's,
@@ -919,6 +934,216 @@ def stream_and_cli(dev, reset_counts, hour, hour_ref, hour_payloads):
          **kernel_bound(pipe.scl.plan.sched, len(llrs), LIST_SIZE, True),
          "library_ms": None, "shape": list(llrs.shape)}]
     shutil.rmtree(work, ignore_errors=True)
+    return summary, entries
+
+
+def kernel_entry(name: str, plan, llrs, lsz: int, launches: int) -> dict:
+    """Kernel A (``lsz`` 1) or the exact list-``lsz`` kernel B on ``llrs``
+    timed in turns with its plain version and held to the plain output
+    of the timed run (codewords and lane order equal, pm within
+    PM_RTOL): its kernels-line entry."""
+    from modem_tpu_torch.kernels.sc_decode import (sc_decode,
+                                                   sc_decode_reference)
+    from modem_tpu_torch.kernels.scl_decode import (scl_decode,
+                                                    scl_decode_reference)
+    if lsz == 1:
+        source = "sc_decode"
+        kernel = lambda: sc_decode(llrs, plan)               # noqa: E731
+        plain = lambda: sc_decode_reference(llrs, plan.sched)  # noqa: E731
+    else:
+        source = "scl_decode"
+        kernel = lambda: scl_decode(llrs, plan, lsz, True)    # noqa: E731
+        plain = lambda: scl_decode_reference(           # noqa: E731
+            llrs, plan.sched, lsz, True)
+    kept = []
+    ms, plain_ms = kernel_vs_plain_ms(
+        kernel, lambda: kept.append(plain()), 5)
+    (cw_k, pm_k), (cw_r, pm_r) = kernel(), kept[0]
+    shape = list(llrs.shape)
+    check(torch.equal(cw_k, cw_r) and torch.allclose(
+        pm_k, pm_r, rtol=PM_RTOL, atol=0.0),
+        f"{name} at {shape} differs from its plain version")
+    err = float((pm_k - pm_r).abs().max())
+    print(f"{name} at {shape} (L = {lsz}): codewords and lane order equal, "
+          f"max |pm diff| {err}; {ms:.3f} ms vs plain {plain_ms:.1f} ms; "
+          f"{launches} launches on the path")
+    return {"name": name, "route": "cuda",
+            "source": f"modem_tpu_torch/csrc/{source}.cu",
+            "replaces": "modem_tpu/kernels/scl_pallas.py:1732",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, **kernel_bound(plan.sched, len(llrs), lsz),
+            "library_ms": None, "shape": shape, "list_size": lsz}
+
+
+def multi_device(dev, reset_counts, recs, payloads, hour, hour_payloads):
+    """Phase 15: modem_tpu_torch.parallel on the card, each drive with the
+    launch counts at 0 just before it and read just after.  Returns
+    (summary, kernel entries for A and B on these paths)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from modem_tpu_torch import bits as B
+    from modem_tpu_torch import parallel as P
+    from modem_tpu_torch.kernels.sc_decode import sc_decode
+    from modem_tpu_torch.kernels.scl_decode import scl_decode
+    from modem_tpu_torch.pipeline import BatchPipeline
+
+    summary = {}
+    pipe_a = BatchPipeline(8000, 6, list_size=1, device=dev)
+    pipe_b = BatchPipeline(8000, 6, device=dev)
+    recs_b, payloads_b = recs[:FALLBACK_BATCH], payloads[:FALLBACK_BATCH]
+
+    def fresh_hour():
+        """The hour anew, so each call copies it to the card itself."""
+        return type(hour)(data=hour.data, bits=hour.bits, rate=hour.rate)
+
+    def host(res) -> dict:
+        return {k: np.asarray(res[k].cpu() if isinstance(res[k], torch.Tensor)
+                              else res[k]) for k in ("bits", "ok", "flips")}
+
+    def held(got, want, sent, label) -> None:
+        """Sharded equal to single-device on bits, ok and flips, and every
+        frame byte-exact."""
+        for key in ("bits", "ok", "flips"):
+            check(np.array_equal(got[key], want[key]),
+                  f"multi-device {label}: {key} differs from one device")
+        good = sum(bool(ok) and B.scramble(B.bits_to_bytes_le(b)) == p
+                   for b, ok, p in zip(got["bits"], got["ok"], sent))
+        check(good == len(sent), f"multi-device {label}: {good} of "
+              f"{len(sent)} frames byte-exact")
+
+    # -- 15.1 NCCL: one rank on this card, in this process, its group on a
+    # FileStore
+    world = 1
+    launches, pos_h = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), world),
+            rank=0, world_size=world)
+        try:
+            mesh = P.make_mesh(device=dev)
+            try:
+                P.make_mesh(device="cpu")
+            except ValueError as err:
+                print(f"multi-device nccl: make_mesh(device='cpu') refused: "
+                      f"{err}")
+            else:
+                check(False, "an NCCL mesh took a CPU device")
+            runs = {
+                f"A [{len(recs)}]": (
+                    lambda: pipe_a.decode_batch(recs),
+                    lambda: P.sharded_decode_batched(
+                        pipe_a, mesh, len(recs) // world)(recs), payloads),
+                f"B [{len(recs_b)}]": (
+                    lambda: pipe_b.decode_batch(recs_b),
+                    lambda: P.sharded_decode_batched(
+                        pipe_b, mesh, len(recs_b) // world)(recs_b),
+                    payloads_b),
+                "hour": (
+                    lambda: pipe_b.decode_recording(fresh_hour()),
+                    lambda: P.sharded_decode_recording(pipe_b, mesh,
+                                                       fresh_hour()),
+                    hour_payloads)}
+            for label, (single, sharded, sent) in runs.items():
+                want = single()
+                sharded()                                   # warm-up
+                torch.cuda.synchronize()
+                reset_counts()
+                got = sharded()
+                torch.cuda.synchronize()
+                launches[label] = (sc_decode.launches, scl_decode.launches,
+                                   scl_decode.fast_launches)
+                if label == "hour":
+                    (got, pos), (want, pos_h) = got, want
+                    check([int(p) for p in pos] == [int(p) for p in pos_h],
+                          "multi-device hour: positions differ from "
+                          "BatchPipeline.decode_recording's")
+                held(host(got), host(want), sent, label)
+                ms = wall_ms(single, 3), wall_ms(sharded, 3)
+                summary[f"nccl {label}"] = {
+                    "single_ms": ms[0], "sharded_ms": ms[1],
+                    "launches_A": launches[label][0],
+                    "launches_B": launches[label][1]}
+                print(f"multi-device nccl world {world} {label}: "
+                      f"{len(sent)}/{len(sent)} frames byte-exact, equal to "
+                      f"one device on bits, ok, flips; wall {ms[1]:.1f} ms "
+                      f"sharded vs {ms[0]:.1f} ms single-device; launches A "
+                      f"{launches[label][0]}, B {launches[label][1]}, C "
+                      f"{launches[label][2]}")
+            bits = pipe_a.decode_batch(recs)["bits"]
+            gather_ms = cuda_ms(lambda: P.all_gather_rows(bits, mesh), 10)
+            summary["nccl all_gather_ms"] = gather_ms
+            print(f"multi-device nccl: all_gather_rows of bits "
+                  f"{list(bits.shape)} {bits.dtype} {gather_ms:.3f} ms")
+        finally:
+            dist.destroy_process_group()
+    check(launches[f"A [{len(recs)}]"] == (1, 0, 0)
+          and launches[f"B [{len(recs_b)}]"] == (0, 1, 0)
+          and launches["hour"] == (0, 1, 0),
+          f"multi-device nccl launches {launches}")
+
+    # -- 15.2 gloo: four ranks time-sharing this card (NCCL refuses two
+    # ranks on one GPU: "Duplicate GPU detected"); the second of two calls
+    # on each rank is read
+    t0 = time.perf_counter()
+    job = (P.recording_worker, ((8000, 6, 8), fresh_hour(), 64))
+    ranks = P.run_ranks(4, "gloo", "cuda", P.run_jobs, [job, job],
+                        timeout=600)
+    want = host(pipe_b.decode_recording(fresh_hour())[0])
+    for r, (_first, (res, pos, got_payloads, stats)) in enumerate(ranks):
+        check([int(p) for p in pos] == [int(p) for p in pos_h]
+              and got_payloads == hour_payloads,
+              f"multi-device gloo rank {r}: positions or payloads differ")
+        held(host(res), want, hour_payloads, f"gloo rank {r}")
+        summary[f"gloo rank {r}"] = stats
+        print(f"multi-device gloo world 4 on one card, rank {r}: the hour "
+              f"{len(pos)}/{len(hour_payloads)} byte-exact, positions equal; "
+              f"{stats['rank_chunks']} of {stats['chunks']} chunks walked "
+              f"here; wall {stats['wall_ms']:.1f} ms; launches A "
+              f"{stats['launches_A']}, B {stats['launches_B']} (four "
+              "processes share one card, NCCL refuses two ranks on one GPU: "
+              "no scaling is measured)")
+    walk = [r[1][3] for r in ranks]
+    check(sum(w["rank_chunks"] for w in walk) == walk[0]["chunks"],
+          "multi-device gloo: the ranks' chunks do not cover the walk")
+    print(f"multi-device gloo: 4 ranks in {time.perf_counter() - t0:.1f} s "
+          "(spawn and set-up included)")
+
+    # -- 15.3 the dry-run: two gloo ranks on this card
+    t0 = time.perf_counter()
+    dry = P.dryrun_multichip(2, backend="gloo", device="cuda")
+    summary["dryrun"] = dry
+    print(f"multi-device dryrun: {time.perf_counter() - t0:.1f} s")
+
+    # A and B at every shape of the phase, against their plain versions
+    toy = P.toy_pipeline(4, device=dev)
+    toy_llrs = toy.demod(P.toy_recordings(2, device=dev)[0])["llrs"]
+    wires, _ = P.wire_recordings(2, dev)
+    wins, _ = pipe_b.windows_at(hour, pos_h)
+    hour_llrs = pipe_b.demod(wins)["llrs"]
+    sched_b = pipe_b.plan
+    entries = [
+        kernel_entry("sc_decode[parallel]", pipe_a.plan,
+                     pipe_a.demod(recs)["llrs"], 1,
+                     launches[f"A [{len(recs)}]"][0]),
+        kernel_entry("scl_decode[parallel]", sched_b,
+                     pipe_b.demod(recs_b)["llrs"], LIST_SIZE,
+                     launches[f"B [{len(recs_b)}]"][1]),
+        kernel_entry("scl_decode[parallel]", sched_b, hour_llrs, LIST_SIZE,
+                     launches["hour"][1]),
+        kernel_entry("scl_decode[parallel]", sched_b, hour_llrs[:3],
+                     LIST_SIZE, sum(r[1][3]["launches_B"] for r in ranks)),
+        kernel_entry("scl_decode[parallel]", sched_b,
+                     pipe_b.demod(wires)["llrs"], LIST_SIZE,
+                     sum(d["wire_launches_B"] for d in dry)),
+        kernel_entry("scl_decode[parallel]", toy.plan, toy_llrs[:1], 4,
+                     sum(d["toy_launches_B"] for d in dry)),
+        kernel_entry("scl_decode[parallel]", toy.plan, toy_llrs, 4,
+                     sum(d["toy_batched_launches_B"] for d in dry))]
+    check(all(e["launches"] > 0 for e in entries),
+          f"multi-device: a kernel never launched: "
+          f"{[(e['shape'], e['launches']) for e in entries]}")
     return summary, entries
 
 
@@ -1846,6 +2071,15 @@ def main() -> int:
     print(f"stream and cli: phase in {time.perf_counter() - t0:.1f} s on "
           f"{card}")
 
+    # ---- 15. multi-device -------------------------------------------------
+    t0 = time.perf_counter()
+    multi_summary, multi_entries = multi_device(
+        dev, reset_counts, rec_sets[1], payload_sets[1], hour[0], hour[2])
+    check(not any(option_counts().values()),
+          f"the multi-device paths launched {option_counts()}")
+    print(f"multi-device: phase in {time.perf_counter() - t0:.1f} s on "
+          f"{card}")
+
     sched = plan.sched
     kernels = [
         {"name": "sc_decode", "route": "cuda",
@@ -1885,7 +2119,7 @@ def main() -> int:
          "ms_1": list_ms["C", 1][0], "plain_ms_1": list_ms["C", 1][1],
          "bound_ms_1": kernel_bound(sched, 1, LIST_SIZE, False)["bound_ms"],
          "escalation_launches": esc_c_launches[2], **main_tier}] + \
-        decode_all_entries + stream_entries + options
+        decode_all_entries + stream_entries + multi_entries + options
     for k in kernels:
         print(f"bound {k['name']} at {k['shape']}: {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}: {k['bytes']} bytes, {k['operations']} "
@@ -1900,7 +2134,7 @@ def main() -> int:
         "escalation_ms": esc_ms, "decoder_s": dec_s,
         "decoder_stage_ms": stage_ms, "override_us_per_row": per_row_us,
         "unroll_ladder": ladder, "decode_all": decode_all_summary,
-        "stream_cli": stream_summary}))
+        "stream_cli": stream_summary, "multi_device": multi_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

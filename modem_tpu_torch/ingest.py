@@ -49,6 +49,11 @@ class PcmRecording:
                              f"{want[0].__name__}, got {self.data.dtype}")
         self._device_copy: dict = {}
 
+    def __getstate__(self):
+        """Pickled without its device copies: a process sent the
+        recording (a rank) makes its own."""
+        return {**self.__dict__, "_device_copy": {}}
+
     @property
     def channels(self) -> int:
         return 1 if self.data.ndim == 1 else self.data.shape[1]

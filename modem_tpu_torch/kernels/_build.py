@@ -60,7 +60,12 @@ def _compile(lib: pathlib.Path, source: pathlib.Path, defines) -> None:
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {source.name}:\n"
                            f"{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    # both renames are atomic, so processes building the same library
+    # at once (the ranks of one machine) each leave a whole file
+    log = lib.with_suffix(".log")
+    log_tmp = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+    log_tmp.write_text(proc.stdout + proc.stderr)
+    os.replace(log_tmp, log)
     os.replace(tmp, lib)
 
 

@@ -90,16 +90,21 @@ class BatchPipeline:
     :data:`SCL_UNROLL_DEFAULT`; the result is the same, and the plain CPU
     path has no unroll.  True raises ValueError on a schedule longer
     than ``unroll.MAX_ROWS`` (every wire-size mode): no such build has
-    been seen to end, and the wire-size one ran out of host memory."""
+    been seen to end, and the wire-size one ran out of host memory.
+    estimator: the Theil-Sen variant of the demod, "disjoint" or
+    "all_pairs"; None for the module default ``track.ESTIMATOR``."""
 
     def __init__(self, rate: int, oper_mode: int, list_size: int = 8,
                  mode_spec=None, symbol_len_override=None,
                  scl_exact: bool = True, mls_convention: str = "galois",
                  sync_stride: int = 8, device="cuda", state=None,
-                 scl_unroll: bool | None = None):
+                 scl_unroll: bool | None = None,
+                 estimator: str | None = None):
         if list_size != 1 and list_size not in LIST_SIZES:
             raise NotImplementedError(
                 f"the port decodes with list_size 1 or {LIST_SIZES}")
+        if estimator is not None and estimator not in track.ESTIMATORS:
+            raise ValueError(f"unknown Theil-Sen estimator {estimator!r}")
         if mls_convention == "auto":
             raise ValueError(
                 "BatchPipeline needs a committed mls_convention (the "
@@ -116,6 +121,7 @@ class BatchPipeline:
         self.state = state
         self.list_size = list_size
         self.scl_exact = scl_exact
+        self.estimator = estimator
         self.scl_unroll = (SCL_UNROLL_DEFAULT if scl_unroll is None
                            else bool(scl_unroll))
         frozen = state.frozen.cpu().numpy()
@@ -202,7 +208,8 @@ class BatchPipeline:
         carriers = spec[..., self._bins]
         cons = ofdm.demod_or_erase(carriers[:, 1:], carriers[:, :-1])
         cons, _slope, _yint = track.derotate_rows(cons, self._code_off,
-                                                  mode.mod_bits)
+                                                  mode.mod_bits,
+                                                  self.estimator)
         llrs, snr = track.soft_llrs(cons, mode.mod_bits)
         full = self.code.lengthen(llrs.reshape(batch, -1))
         return dict(llrs=full.contiguous(), p0=p0, cfo_rad=cfo, snr=snr,

@@ -12,6 +12,9 @@ argmax carried across chunks.  Recordings are complex tensors, or
 ``ingest.PcmRecording`` wire-dtype samples whose front end runs inside
 the chunk loop; positions are in recording coordinates, ``p0`` pointing
 at the first payload sample of the Schmidl-Cox symbol (decode.cc:84-152).
+With ``Synchronizer.mesh`` set (``parallel.sharded_sync``) the scan's
+chunks shard over the ranks of a ``torch.distributed`` group, the
+carries composed from per-chunk summaries, with the same events.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from . import bits as B
 from . import fft, ofdm
+from .mesh import all_gather_rows
 from .numerology import ModemConfig
 
 _BLK = 512       # chunk starts and contexts are multiples of this block
@@ -152,6 +156,45 @@ def segmented_argmax(v: torch.Tensor, seg_start: torch.Tensor):
     return seg, vmax, first.scatter_reduce(0, seg, at, "amin")
 
 
+def continue_region(regions, best) -> None:
+    """Merge the collect region open before a chunk, ``best`` = (value,
+    index, phase), into region 0 of the chunk's regions
+    (:meth:`Synchronizer._chunk_regions`), in place: the carried region
+    keeps its (earlier) index unless the chunk's part of it is strictly
+    larger."""
+    _s, _f, _seg, vmax, idx, ph = regions
+    cv, ci, cp = best
+    keep = ~(vmax[0] > cv)
+    vmax[0] = torch.where(keep, cv, vmax[0])
+    idx[0] = torch.where(keep, ci, idx[0])
+    ph[0] = torch.where(keep, cp, ph[0])
+
+
+def _region_tail(regions) -> torch.Tensor:
+    """A chunk's summary for the sharded scan, f64 [5]: the state it ends
+    in, and its last collect region's max, index and phase, and whether a
+    region starts in the chunk (else the last region is region 0, which
+    continues the one open before it)."""
+    s, _f, seg_id, vmax, idx, ph = regions
+    last = seg_id[-1]
+    return torch.stack([s[-1].double(), vmax[last].double(),
+                        idx[last].double(), ph[last].double(),
+                        (last > 0).double()])
+
+
+def _first_edges(regions, k: int) -> torch.Tensor:
+    """The first ``k`` falling edges of a chunk as f64 [k, 3] rows (edge,
+    n_max, phase), chunk-relative edges in time order, -1 rows past the
+    last edge; no host copy."""
+    _s, f, seg_id, _vmax, idx, ph = regions
+    c = f.shape[0]
+    pos = torch.where(f, torch.arange(c, device=f.device), c)
+    e = pos.topk(k, largest=False, sorted=True).values
+    seg = seg_id[e.clamp(max=c - 1)]
+    return torch.stack([torch.where(e < c, e, -1).double(),
+                        idx[seg].double(), ph[seg].double()], dim=1)
+
+
 @dataclasses.dataclass
 class SyncCandidate:
     """One Schmidl-Cox detection after the fine stage and the gates."""
@@ -220,6 +263,10 @@ class Synchronizer:
         from .ingest import front_lead
         self.front_lead = front_lead(self.dc_window, self.taps)
         self.last_chunks = 0    # chunks the last scan walked
+        self.last_rank_chunks = 0   # of them, the ones this rank computed
+        # a mesh.Mesh shards the scan's chunk axis over its ranks
+        # (parallel.sharded_sync); None walks every chunk here
+        self.mesh = None
 
     def _products(self, x: torch.Tensor, valid_from: int = 0):
         """Correlation products x[v+L] * conj(x[v+2L]) and powers
@@ -375,37 +422,45 @@ class Synchronizer:
         outside the recording (:meth:`windows`)."""
         return self.windows(x, [n0 - ctx], ctx + c + 2 * self.L)[0]
 
-    def _chunk_events(self, x, n0: int, c: int, ctx: int, state, best):
-        """One chunk of the device scan: outputs [n0, n0 + c) with a left
-        context of ``ctx`` samples (zero padding before the recording,
-        whose products are masked).  ``state``: the Schmitt state before
-        n0; ``best``: (value, index, phase) of the collect region open at
-        n0.  Returns (edges [k] chunk-relative, n_max [k], phase [k],
-        state, best) with the carries for the next chunk, all tensors."""
+    def _chunk_metrics(self, x, n0: int, c: int, ctx: int):
+        """The carry-free part of one chunk of the scan: (timing, the
+        phase read at n - match_del), each [c], of outputs [n0, n0 + c)
+        with a left context of ``ctx`` samples (zero padding before the
+        recording, whose products are masked)."""
         md = self.match_del
         seg = self._segment(x, n0, c, ctx)
         t, p = self._metrics(seg, valid_from=ctx if n0 == 0 else 0)
-        t_c = t[ctx: ctx + c]
         # the phase read at n - match_del; clamped to index 0 at the
         # recording start, as the JAX package's host walk reads it
         psh_c = p[ctx - md: ctx + c - md].clone()
         if n0 == 0:
             psh_c[:md] = p[ctx]
+        return t[ctx: ctx + c], psh_c
+
+    def _chunk_regions(self, t_c, psh_c, n0: int, state):
+        """A chunk's Schmitt trigger and collect regions given the state
+        before n0 (a 0-d bool tensor): (state [c], falling edges [c],
+        region id of each output [c], and a region's max, index of its
+        first max and phase there, each [c + 1]).  A region starts
+        wherever the state was off before; region 0 continues the one
+        open at n0, before :func:`continue_region` merges the carry."""
         s, f = schmitt_falling(t_c, self.thr_lo, self.thr_hi, state)
         prev_s = torch.cat([state.reshape(1), s[:-1]])
-        # collect regions: a segment starts wherever the state was off
-        # before; segment 0 continues the region open at n0
         seg_id, vmax, first = segmented_argmax(
             torch.where(s, t_c, -math.inf), ~prev_s)
-        at = first.clamp(max=c - 1)
-        idx, ph = n0 + first, psh_c[at]
-        cv, ci, cp = best
-        # the carried region keeps its (earlier) index unless the chunk's
-        # part of it is strictly larger
-        keep = ~(vmax[0] > cv)
-        vmax[0] = torch.where(keep, cv, vmax[0])
-        idx[0] = torch.where(keep, ci, idx[0])
-        ph[0] = torch.where(keep, cp, ph[0])
+        at = first.clamp(max=t_c.shape[0] - 1)
+        return s, f, seg_id, vmax, n0 + first, psh_c[at]
+
+    def _chunk_events(self, x, n0: int, c: int, ctx: int, state, best):
+        """One chunk of the device scan: outputs [n0, n0 + c).  ``state``:
+        the Schmitt state before n0; ``best``: (value, index, phase) of
+        the collect region open at n0.  Returns (edges [k]
+        chunk-relative, n_max [k], phase [k], state, best) with the
+        carries for the next chunk, all tensors."""
+        t_c, psh_c = self._chunk_metrics(x, n0, c, ctx)
+        s, f, seg_id, vmax, idx, ph = regions = self._chunk_regions(
+            t_c, psh_c, n0, state)
+        continue_region(regions, best)
         edges = torch.nonzero(f)[:, 0]
         e_seg = seg_id[edges]
         last = seg_id[-1]
@@ -448,8 +503,12 @@ class Synchronizer:
         ``max_edges`` falling edges, walking the recording (analytic [T]
         or a PcmRecording) chunk by chunk on the synchroniser's device
         with the Schmitt state and the running argmax carried across
-        chunk boundaries (:meth:`chunk_step`).  Sets ``last_chunks`` to
-        the number of chunks walked."""
+        chunk boundaries (:meth:`chunk_step`); with ``mesh`` set, the
+        chunks shard over its ranks (:meth:`_events_sharded`).  Sets
+        ``last_chunks`` to the number of chunks walked, and
+        ``last_rank_chunks`` to the number this rank computed."""
+        if self.mesh is not None:
+            return self._events_sharded(x, chunk_samples, max_edges)
         n_out = x.shape[0] - 2 * self.L
         self.last_chunks = 0
         if n_out <= 0:
@@ -463,6 +522,104 @@ class Synchronizer:
             events += got
             if len(events) >= max_edges:
                 break
+        self.last_rank_chunks = self.last_chunks
+        return events[:max_edges]
+
+    # the sharded walk goes in rounds of up to this many chunks, rounded
+    # up to a multiple of the mesh's size (the JAX package's super-batch)
+    MAX_CHUNKS_PER_ROUND = 16
+
+    def _events_sharded(self, x, chunk_samples: int, max_edges: int):
+        """:meth:`_events_device` with the chunk axis sharded over the
+        ranks of ``self.mesh`` (context parallelism; the JAX package's
+        mesh-sharded super-batches).  The walk goes in rounds of m chunks,
+        m a multiple of the mesh's size n, and rank r takes the round's
+        chunks [r m/n, (r + 1) m/n).  In each round a rank
+
+        1. computes each of its chunks' metrics once, with no carry, and
+           its regions under either Schmitt state before it; a chunk's
+           summary under each is the state it ends in (s0[-1] or s0[-1] |
+           ball[-1], the JAX package's Schmitt pair) and the tail of its
+           last collect region, (value, index, phase, whether a region
+           starts in the chunk): the operands of JAX's _seg_argmax_op;
+        2. gathers every rank's summaries, ten numbers a chunk;
+        3. composes, on the host as every rank does, the carries of the
+           round's chunks in order from the carry into the round: a tail
+           replaces the carried region where a region starts in its chunk
+           or its value is strictly larger (the earlier index wins a tie,
+           as :func:`continue_region` keeps it);
+        4. finishes its chunks from the kept regions of their true state,
+           region 0 merged with their true carried region, no metric
+           computed again;
+        5. gathers the first ``max_edges`` edges of every chunk as (edge,
+           n_max, phase).
+
+        Every rank stops after the same round, once ``max_edges`` events
+        are in, deciding on gathered data: ranks that disagreed on the
+        number of rounds would hang in a collective.  The last round's
+        pad chunks carry the n_out sentinel and the identity summary.  The
+        events equal the single-device walk's: an edge among the
+        recording's first ``max_edges`` is among its chunk's first."""
+        mesh, dev = self.mesh, self.device
+        n_out = x.shape[0] - 2 * self.L
+        self.last_chunks = self.last_rank_chunks = 0
+        if n_out <= 0:
+            return []
+        c, ctx = self._context(chunk_samples)
+        n_chunks = -(-n_out // c)
+        k = min(max_edges, c)
+        f64 = dict(dtype=torch.float64, device=dev)
+        # a pad chunk passes both carries through and has no edge
+        identity = torch.tensor([0, -math.inf, 0, 0, 0,
+                                 1, -math.inf, 0, 0, 0], **f64)
+        no_edges = torch.full((k, 3), -1.0, **f64)
+        state, best = False, (-math.inf, 0, 0.0)
+        events = []
+        g0 = 0
+        while g0 < n_chunks and len(events) < max_edges:
+            m = min(self.MAX_CHUNKS_PER_ROUND, n_chunks - g0)
+            m = -(-m // mesh.size) * mesh.size
+            n0s = [min((g0 + j) * c, n_out) for j in range(m)]
+            per = m // mesh.size
+            mine = range(mesh.rank * per, (mesh.rank + 1) * per)
+            kept, tails = [], []
+            for j in mine:
+                if n0s[j] == n_out:
+                    kept.append(None)
+                    tails.append(identity)
+                    continue
+                t_c, psh_c = self._chunk_metrics(x, n0s[j], c, ctx)
+                hyp = [self._chunk_regions(t_c, psh_c, n0s[j],
+                                           torch.tensor(h, device=dev))
+                       for h in (False, True)]
+                kept.append(hyp)
+                tails.append(torch.cat([_region_tail(r) for r in hyp]))
+                self.last_rank_chunks += 1
+            carries = []
+            for row in all_gather_rows(torch.stack(tails), mesh).cpu().numpy():
+                carries.append((state, best))
+                s_out, v, i, p, starts = row[5:] if state else row[:5]
+                if starts or v > best[0]:
+                    best = (v, i, p)
+                state = bool(s_out)
+            firsts = []
+            for j, hyp in zip(mine, kept):
+                if hyp is None:
+                    firsts.append(no_edges)
+                    continue
+                st, (v, i, p) = carries[j]
+                regions = hyp[int(st)]
+                continue_region(regions, (
+                    torch.tensor(v, dtype=torch.float32, device=dev),
+                    torch.tensor(int(i), device=dev),
+                    torch.tensor(p, dtype=torch.float32, device=dev)))
+                firsts.append(_first_edges(regions, k))
+            got = all_gather_rows(torch.stack(firsts), mesh).cpu().numpy()
+            for n0, rows in zip(n0s, got):
+                events += [(int(n0 + e), int(nm), float(ph))
+                           for e, nm, ph in rows if 0 <= e and n0 + e < n_out]
+            self.last_chunks += sum(n0 < n_out for n0 in n0s)
+            g0 += m
         return events[:max_edges]
 
     def scan(self, x, max_candidates: int = 8, chunk_samples=None):

@@ -48,13 +48,17 @@ def theil_sen_all_pairs(x: torch.Tensor, y: torch.Tensor):
 
 
 ESTIMATORS = {"disjoint": theil_sen, "all_pairs": theil_sen_all_pairs}
+# the estimator of derotate_rows(estimator=None), as the JAX package's
+# module default
+ESTIMATOR = "disjoint"
 
 
 def derotate_rows(cons: torch.Tensor, code_off: int, mod_bits: int,
-                  estimator: str = "disjoint"):
+                  estimator: str | None = None):
     """Per-row Theil-Sen phase regression and derotation
     (decode.cc:479-504).  cons: [..., rows, cols] complex differential
-    constellation points; ``estimator`` "disjoint" or "all_pairs".
+    constellation points; ``estimator`` "disjoint" or "all_pairs", None
+    for :data:`ESTIMATOR`.
     Returns (derotated cons, mean slope, mean intercept), the means over
     the rows axis."""
     cols = cons.shape[-1]
@@ -64,7 +68,8 @@ def derotate_rows(cons: torch.Tensor, code_off: int, mod_bits: int,
     # phase error of each point vs its hard decision
     err = torch.atan2(cons.imag * ref.real - cons.real * ref.imag,
                       cons.real * ref.real + cons.imag * ref.imag)
-    slopes, yints = ESTIMATORS[estimator](x, err)
+    slopes, yints = ESTIMATORS[ESTIMATOR if estimator is None
+                               else estimator](x, err)
     theta = -(slopes[..., None] * x + yints[..., None])
     out = cons * torch.complex(torch.cos(theta), torch.sin(theta))
     return out, slopes.mean(dim=-1), yints.mean(dim=-1)

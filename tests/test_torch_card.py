@@ -796,3 +796,66 @@ def test_cli_decode_stream_pipe_on_card(cuda_device, tmp_path):
     assert live
     for i, p in enumerate(payloads):
         assert open(f"{prefix}.{i:03d}", "rb").read() == p
+
+
+@pytest.mark.cuda
+def test_nccl_world1_sharded_decode_on_card(cuda_device, tmp_path):
+    """parallel.sharded_decode over an NCCL group of one rank (a FileStore
+    group in this process) equals the CPU decode; the same group refuses
+    a CPU device instead of falling back to gloo."""
+    import torch.distributed as dist
+
+    from modem_tpu_torch import parallel as P
+
+    recs, payloads = P.toy_recordings(4, seed=4, device="cpu")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="NCCL"):
+            P.make_mesh(device="cpu")
+        mesh = P.make_mesh(device=cuda_device)
+        assert (mesh.backend, mesh.size, mesh.device.type) == ("nccl", 1,
+                                                               "cuda")
+        out = P.sharded_decode(P.toy_pipeline(device=cuda_device),
+                               mesh)(recs)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+    finally:
+        dist.destroy_process_group()
+    want = P.toy_pipeline(device="cpu").decode_batch(recs)
+    for key in ("bits", "ok", "flips"):
+        assert np.array_equal(out[key], want[key].numpy()), key
+    assert out["ok"].all()
+    assert [B.scramble(B.bits_to_bytes_le(b)) for b in out["bits"]] == \
+        payloads
+
+
+@pytest.mark.cuda
+def test_gloo_world2_sharded_recording_on_card(cuda_device):
+    """Two gloo ranks on one card (NCCL refuses two ranks on one GPU):
+    sharded_decode_recording of a toy six-frame recording as int16 PCM
+    equals the single-device decode_recording on every rank.  Each frame
+    is followed by 20,000 samples of silence, so the scan walks two
+    chunks of 2^17, one a rank, the sixth preamble across their
+    boundary."""
+    from modem_tpu_torch import parallel as P
+
+    recs, payloads = P.toy_recordings(6, seed=2, device="cpu")
+    gap = np.zeros((20000, 2), np.float32)
+    x = np.concatenate([part for r in recs for part in (r, gap)], axis=0)
+    pcm = np.clip(np.rint(x * 32767), -32768, 32767).astype(np.int16)
+
+    def rec():
+        return PcmRecording(data=pcm.copy(), bits=16, rate=8000)
+
+    pipe = P.toy_pipeline(device=cuda_device)
+    want, pos = pipe.decode_recording(rec(), max_frames=8)
+    assert [pipe.payload_bytes(want, i) for i in range(len(pos))] == payloads
+    out = P.run_ranks(2, "gloo", "cuda", P.recording_worker, ("toy", 4),
+                      rec(), 8, timeout=300)
+    for res, got_pos, got_payloads, stats in out:
+        assert [int(p) for p in got_pos] == [int(p) for p in pos]
+        assert got_payloads == payloads
+        for key in ("ok", "flips"):
+            assert np.array_equal(res[key].numpy(), want[key].cpu().numpy())
+        assert stats["launches_B"] == 1
+        assert (stats["chunks"], stats["rank_chunks"]) == (2, 1)

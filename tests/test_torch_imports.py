@@ -36,7 +36,8 @@ def test_every_module_is_listed():
                  "modem_tpu_torch.probes.interleave",
                  "modem_tpu_torch.wav", "modem_tpu_torch.ingest",
                  "modem_tpu_torch.channel", "modem_tpu_torch.stream",
-                 "modem_tpu_torch.cli"):
+                 "modem_tpu_torch.cli", "modem_tpu_torch.mesh",
+                 "modem_tpu_torch.parallel"):
         assert name in mods
 
 

@@ -169,6 +169,39 @@ def test_strided_sync_matches_full_rate(batches):
             assert torch.equal(a[key], b[key]), key
 
 
+@pytest.fixture(scope="module")
+def all_pairs_results(batches):
+    """Both packages' pipelines with estimator="all_pairs" (the JAX
+    pipeline's constructor option; the port's since it was added)."""
+    cfg = jax_toy_config()
+    ref = JaxBatchPipeline(rate=cfg.rate, oper_mode=0, list_size=1,
+                           mode_spec=cfg.mode,
+                           symbol_len_override=cfg.symbol_len,
+                           estimator="all_pairs")
+    port = toy_port(estimator="all_pairs")
+    return {sigma: ({k: v.numpy() for k, v in port.decode_batch(x).items()},
+                    {k: np.asarray(v) for k, v in ref.decode_batch(x).items()})
+            for sigma, x in batches[0].items()}
+
+
+@pytest.mark.parametrize("sigma", [0.0, 0.05, 0.3])
+def test_all_pairs_estimator_matches_jax(all_pairs_results, results, sigma):
+    got, want = all_pairs_results[sigma]
+    for key in EXACT_KEYS:
+        assert np.array_equal(got[key], want[key].astype(got[key].dtype)), key
+    assert np.abs(got["cfo_rad"] - want["cfo_rad"]).max() <= 1e-5
+    if sigma > 0:
+        assert np.allclose(got["snr"], want["snr"], rtol=1e-3)
+        # the option reaches the demod: another estimate than disjoint's
+        assert not np.array_equal(got["snr"], results[sigma][0]["snr"])
+
+
+def test_unknown_estimator_raises():
+    with pytest.raises(ValueError, match="estimator"):
+        toy_port(estimator="median")
+    assert toy_port().estimator is None
+
+
 def test_options_that_wait_raise():
     with pytest.raises(NotImplementedError):
         toy_port(list_size=3)

@@ -59,8 +59,9 @@ Phases:
      clean decode_batch ms); then AdaptivePipeline(scl_exact=False) on
      the noisy batch equals BatchPipeline(list_size=8, scl_exact=False)
      on every key, through kernel C;
-  8. the frozen golden recording tests/data/golden_mode6_galois.wav
-     decoded byte-exact by the serving pipeline on the card;
+  8. the frozen golden recording tests/data/golden_mode6_galois.wav, read
+     by the port's native WAV codec, decoded byte-exact by the serving
+     pipeline on the card;
   9. the interactive Decoder on the card: the golden recording as 2-channel
      I/Q and as its first channel through the mono front end, with
      kernel B and with kernel C, and one recording of each of the 8 modes
@@ -109,7 +110,9 @@ Phases:
      peak device memory; bench/stream_bench.py's 16 mode-6 frames (the
      port's Encoder.encode, seed 0) after a warm-up, in 1 s feeds and in
      one feed, 16/16 both ways; B at the stream's [1, 65536] against its
-     plain version; the command line as subprocesses (python3 -m
+     plain version; the hour written and read back by the native WAV
+     codec (csrc/modem_host.cc), its ms each way; the command line, whose
+     WAVs go through the native codec, as subprocesses (python3 -m
      modem_tpu_torch.cli): the Makefile's smoke (encode, decode,
      compare), decode-all and decode-all --adaptive on a two-frame WAV,
      decode-stream PREFIX - through a pipe 1 s at a time with the first
@@ -130,7 +133,23 @@ Phases:
      refuses two ranks on one GPU) decoding the hour, equal on every rank,
      with each rank's chunks of the sharded scan; then
      parallel.dryrun_multichip(2, "gloo", "cuda"); A and B at every shape
-     of the phase against their plain versions.
+     of the phase against their plain versions;
+ 16. the impaired-channel envelope of the serving defaults (each drive
+     with the counts at 0 just before): bench/ber_sweep.py's 64 mode-6
+     recordings (payloads of seed 0, 0.5 s of silence either side)
+     through channel.reference_chain (multipath x10, cfo 234.567 Hz, sfo
+     147 ppm) with recording i's AWGN from default_rng(100 + i) at -30,
+     -22, -20 and -18 dB, each level a cell decoded four ways: (a)
+     AdaptivePipeline(8000, 6), stride 8; (b) the same at sync_stride=1;
+     (c) BatchPipeline(8000, 6, list_size=8) at stride 8; (d)
+     Decoder(8000) on each recording; per cell the byte-exact frames, ok
+     frames with wrong bytes (must be 0), the escalations of (a) and (b),
+     p0 of (a) against (b) and the frames one decoder recovers and another
+     loses; (a) equals (c) on every key, and at -30 dB every decoder
+     recovers 64/64; B's launches counted by shape; A at the cell's
+     [64, 65536], and B at each of its shapes (the escalated rows of (a)
+     at [16, 65536], (c)'s [64, 65536], the Decoder's [1, 65536]), each
+     on that path's own LLRs, against their plain versions.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Prints a
 JSON line of kernel results (each kernel's time, its plain version's,
@@ -148,7 +167,6 @@ import os
 import subprocess
 import sys
 import time
-import wave
 
 import numpy as np
 import torch
@@ -193,6 +211,12 @@ AUTO_SEED = 3
 IMPAIRED_SEED = 2            # tests/test_channel.py's reference chain
 STREAM_FRAMES = 16           # bench/stream_bench.py's default, seed 0
 CLI_SEED = 21
+ENVELOPE_FRAMES = 64         # bench/ber_sweep.py's geometry, payloads seed 0
+ENVELOPE_DB = (-30.0, -22.0, -20.0, -18.0)   # the demo, then the cliff grid
+ENVELOPE_SEED = 100          # recording i's AWGN: default_rng(100 + i)
+ENVELOPE_SPREAD = 10
+ENVELOPE_CFO_HZ = 234.567
+ENVELOPE_SFO_PPM = 147.0
 
 
 def check(cond, msg: str) -> None:
@@ -265,14 +289,14 @@ def kernel_vs_plain_ms(kernel, plain, reps: int):
 
 
 def read_golden():
-    with wave.open(os.path.join(ROOT, "tests", "data",
-                                "golden_mode6_galois.wav")) as f:
-        check((f.getframerate(), f.getnchannels(), f.getsampwidth())
-              == (8000, 2, 2), "golden recording format")
-        raw = np.frombuffer(f.readframes(f.getnframes()),
-                            dtype="<i2").reshape(-1, 2)
-    x = raw.astype(np.float32) / 32767.0
-    return (x[:, 0] + 1j * x[:, 1]).astype(np.complex64)
+    """The golden I/Q recording through the port's WAV reader (the native
+    codec, as for any regular file)."""
+    from modem_tpu_torch import wav
+    data = wav.read_wav(os.path.join(ROOT, "tests", "data",
+                                     "golden_mode6_galois.wav"))
+    check((data.rate, data.channels, data.bits) == (8000, 2, 16),
+          "golden recording format")
+    return data.analytic
 
 
 def build_all(libraries: dict) -> dict:
@@ -773,8 +797,32 @@ def stream_and_cli(dev, reset_counts, hour, hour_ref, hour_payloads):
     check(same_frames(got, hour_ref),
           "stream hour: frames differ from decode_recording_auto's")
     check(stats["launches_B"] == n, "stream hour: not one B launch a frame")
+
+    # the native WAV codec on the hour: written as 16-bit mono, read back
+    # (floats and wire dtype); the numpy quantiser, its plain version, beside
+    hour_wav = os.path.join(ROOT, "build", "chip_smoke_hour.wav")
+    os.makedirs(os.path.dirname(hour_wav), exist_ok=True)
+    x = hour.data.astype(np.float32) / np.float32(32767.0)
+    tw = time.perf_counter()
+    wav.write_wav(hour_wav, x, 8000, 16, 1)
+    codec = {"write_ms": (time.perf_counter() - tw) * 1e3}
+    tw = time.perf_counter()
+    back = wav.read_wav(hour_wav)
+    codec["read_ms"] = (time.perf_counter() - tw) * 1e3
+    tw = time.perf_counter()
+    wav._quantize(x.astype(np.float64), 16)
+    codec["numpy_quantize_ms"] = (time.perf_counter() - tw) * 1e3
+    check(np.array_equal(wav.read_wav_raw(hour_wav).data, hour.data)
+          and np.allclose(back.samples[:, 0], x, rtol=1e-6, atol=0.0),
+          "native WAV codec: the hour's samples changed in a round trip")
+    os.remove(hour_wav)
+    summary["native_wav"] = codec
     print(f"stream hour: {n}/{n} frames byte-exact, mode 6, {CALL}, equal "
-          "to decode_recording_auto (snr within 1e-4)")
+          "to decode_recording_auto (snr within 1e-4); native WAV codec on "
+          f"the hour ({len(x)} samples, 16-bit mono): write "
+          f"{codec['write_ms']:.1f} ms, read {codec['read_ms']:.1f} ms, "
+          "the int16 samples back exact (numpy quantiser alone "
+          f"{codec['numpy_quantize_ms']:.1f} ms)")
 
     # B at the stream's shape: one frame, [1, 65536]
     pipe_b = cached_pipeline(8000, 6, device=dev)
@@ -1144,6 +1192,222 @@ def multi_device(dev, reset_counts, recs, payloads, hour, hour_payloads):
     check(all(e["launches"] > 0 for e in entries),
           f"multi-device: a kernel never launched: "
           f"{[(e['shape'], e['launches']) for e in entries]}")
+    return summary, entries
+
+
+def envelope_recordings(dev, frames: int = ENVELOPE_FRAMES):
+    """bench/ber_sweep.py's geometry: ``frames`` mode-6 payloads of
+    default_rng(0) encoded on ``dev`` by the port's Encoder.encode_batch
+    (freq_off 2000, N0CALL), 0.5 s of silence either side, through the
+    reference chain's multipath x10, cfo 234.567 Hz and sfo 147 ppm.
+    Returns (payloads, clean length, the impaired recordings before their
+    AWGN): channel.reference_chain is that chain then awgn, so each level
+    adds its AWGN to these."""
+    from modem_tpu_torch import bits as B
+    from modem_tpu_torch import channel
+    from modem_tpu_torch.encoder import Encoder
+    from modem_tpu_torch.numerology import make_config
+
+    cfg = make_config(8000, 6, 2000)
+    rng = np.random.default_rng(0)
+    payloads = [rng.integers(0, 256, cfg.mode.data_bytes,
+                             dtype=np.uint8).tobytes() for _ in range(frames)]
+    waves, _ = Encoder(cfg, device=dev).encode_batch(payloads,
+                                                     B.base37_encode(CALL))
+    sil = np.zeros(cfg.rate // 2, np.complex64)
+    clean = [np.concatenate([sil, w, sil]) for w in waves.cpu().numpy()]
+    chained = [channel.sfo(channel.cfo(channel.multipath(
+        c, spread=ENVELOPE_SPREAD), ENVELOPE_CFO_HZ, 8000), ENVELOPE_SFO_PPM)
+        for c in clean]
+    return payloads, clean, chained
+
+
+def envelope(dev, reset_counts, frames: int = ENVELOPE_FRAMES,
+             levels=ENVELOPE_DB):
+    """Phase 16: the impaired-channel envelope of the serving defaults.
+    Each level is a cell of ``frames`` recordings, decoded four ways, each
+    drive with the counts at 0 just before and read just after: (a)
+    AdaptivePipeline(8000, 6), stride 8, SC then list-8 on CRC failures;
+    (b) the same at sync_stride=1; (c) BatchPipeline(8000, 6, list_size=8)
+    at stride 8; (d) Decoder(8000) on each recording.  Returns (summary,
+    kernel entries for A and B on this path)."""
+    from modem_tpu_torch import channel
+    from modem_tpu_torch.decoder import Decoder
+    from modem_tpu_torch.kernels.sc_decode import sc_decode
+    from modem_tpu_torch.kernels.scl_decode import scl_decode
+    from modem_tpu_torch.pipeline import AdaptivePipeline, BatchPipeline
+
+    t0 = time.perf_counter()
+    payloads, clean, chained = envelope_recordings(dev, frames)
+    n = len(clean[0])
+    check(np.array_equal(
+        channel.reference_chain(clean[0], 8000,
+                                rng=np.random.default_rng(ENVELOPE_SEED),
+                                cfo_hz=ENVELOPE_CFO_HZ,
+                                sfo_ppm=ENVELOPE_SFO_PPM, awgn_db=levels[0],
+                                spread=ENVELOPE_SPREAD),
+        channel.awgn(chained[0], levels[0],
+                     np.random.default_rng(ENVELOPE_SEED))),
+        "envelope: the chain split before its AWGN differs from "
+        "channel.reference_chain")
+    chain_s = time.perf_counter() - t0
+    print(f"envelope: {frames} mode-6 recordings of {n} samples through "
+          f"multipath x{ENVELOPE_SPREAD}, cfo {ENVELOPE_CFO_HZ} Hz, sfo "
+          f"{ENVELOPE_SFO_PPM} ppm in {chain_s:.1f} s on the host")
+
+    pipes = {"a": AdaptivePipeline(8000, 6, device=dev)}
+    state = pipes["a"].sc.state
+    pipes["b"] = AdaptivePipeline(8000, 6, sync_stride=1, device=dev,
+                                  state=state)
+    pipes["c"] = BatchPipeline(8000, 6, list_size=LIST_SIZE, device=dev,
+                               state=state)
+    check((pipes["a"].sc.sync_stride, pipes["b"].sc.sync_stride,
+           pipes["c"].sync_stride) == (8, 1, 8),
+          "envelope: the decoders' coarse-sync strides are not 8, 1, 8")
+    dec = Decoder(8000, device=dev)
+    names = {"a": "adaptive stride 8", "b": "adaptive stride 1",
+             "c": "list-8 stride 8", "d": "Decoder"}
+
+    def counts():
+        torch.cuda.synchronize()
+        return sc_decode.launches, scl_decode.launches, \
+            scl_decode.fast_launches
+
+    # B runs at three shapes here, each counted on its own: the
+    # escalation groups of (a) and (b) [FALLBACK_BATCH], (c) [frames],
+    # the Decoder one recording at a time [1]
+    cells = {}
+    launches = {"A": 0, "B escalation": 0, "B list": 0, "B Decoder": 0}
+    for db in levels:
+        recs = np.stack([
+            channel.awgn(y, db, np.random.default_rng(ENVELOPE_SEED + i))[:n]
+            for i, y in enumerate(chained)]).astype(np.complex64)
+        x = torch.from_numpy(recs).to(dev)
+        good, wrong, hosts, cell = {}, {}, {}, {"db": db}
+        for key in ("a", "b", "c"):
+            pipe = pipes[key]
+            reset_counts()
+            tk = time.perf_counter()
+            host = pipe.fetch(pipe.decode_batch(x))
+            a_n, b_n, c_n = counts()
+            cell[f"{key}_ms"] = (time.perf_counter() - tk) * 1e3
+            check(c_n == 0, f"envelope {db} dB ({key}) launched kernel C")
+            hosts[key] = host
+            exact = [bool(host["ok"][i]) and pipe.payload_bytes(host, i)
+                     == payloads[i] for i in range(frames)]
+            good[key] = {i for i in range(frames) if exact[i]}
+            wrong[key] = sum(bool(host["ok"][i]) and not exact[i]
+                             for i in range(frames))
+            cell[f"{key}_launches"] = [a_n, b_n]
+            if key in ("a", "b"):
+                cell[f"{key}_escalated"] = pipe.last_fallbacks
+                check(a_n == 1 and b_n == -(-pipe.last_fallbacks
+                                            // FALLBACK_BATCH),
+                      f"envelope {db} dB ({key}): launches A {a_n}, B {b_n}"
+                      f" for {pipe.last_fallbacks} escalations")
+            else:
+                check((a_n, b_n) == (0, 1),
+                      f"envelope {db} dB (c): launches A {a_n}, B {b_n}")
+            launches["A"] += a_n
+            launches["B list" if key == "c" else "B escalation"] += b_n
+        reset_counts()
+        tk = time.perf_counter()
+        res = [dec.decode(recs[i], channels=2) for i in range(frames)]
+        a_n, b_n, c_n = counts()
+        cell["d_ms"] = (time.perf_counter() - tk) * 1e3
+        check(a_n == 0 and c_n == 0,
+              f"envelope {db} dB (d): launched kernel A or C")
+        launches["B Decoder"] += b_n
+        cell["d_launches"] = [a_n, b_n]
+        good["d"] = {i for i, r in enumerate(res)
+                     if r.ok and r.payload == payloads[i]}
+        wrong["d"] = sum(r.ok and r.payload != payloads[i]
+                         for i, r in enumerate(res))
+        for key in "abcd":
+            cell[f"{key}_exact"] = len(good[key])
+            cell[f"{key}_ok_wrong"] = wrong[key]
+        p0_diff = hosts["a"]["p0"].astype(np.int64) - hosts["b"][
+            "p0"].astype(np.int64)
+        cell["p0_differ"] = int(np.count_nonzero(p0_diff))
+        cell["p0_max_abs_diff"] = int(np.abs(p0_diff).max())
+        lost = {f"{p} not {q}": sorted(good[p] - good[q])
+                for p in "abcd" for q in "abcd"
+                if p != q and good[p] - good[q]}
+        cell["recovered_not_by"] = lost
+        cell["lost_by_all"] = sorted(set(range(frames)).difference(
+            *good.values()))
+        cell["faults"] = sorted((good["b"] | good["d"]) - good["a"])
+        cells[db] = cell
+        print(f"envelope {db:+.0f} dB ({frames} recordings): byte-exact "
+              + ", ".join(f"({k}) {names[k]} {len(good[k])}" for k in "abcd")
+              + "; ok but wrong " + ", ".join(
+                  f"({k}) {wrong[k]}" for k in "abcd")
+              + f"; escalated (a) {cell['a_escalated']}, (b) "
+              f"{cell['b_escalated']}; p0 (a) vs (b): {cell['p0_differ']} "
+              f"differ, max |diff| {cell['p0_max_abs_diff']}; frames one "
+              f"recovers and another loses: {lost or 'none'}; lost by all: "
+              f"{cell['lost_by_all'] or 'none'}; wall ms (a) "
+              f"{cell['a_ms']:.1f}, (b) {cell['b_ms']:.1f}, (c) "
+              f"{cell['c_ms']:.1f}, (d) {cell['d_ms']:.1f}")
+        check(not any(wrong.values()),
+              f"envelope {db} dB: ok frames with wrong bytes {wrong}")
+        check(set(hosts["a"]) == set(hosts["c"]),
+              "envelope: adaptive result keys differ")
+        for key in hosts["c"]:
+            check(np.array_equal(hosts["a"][key], hosts["c"][key]),
+                  f"envelope {db} dB: adaptive {key} differs from "
+                  "BatchPipeline(list_size=8)")
+        if db == levels[0]:
+            check(all(len(g) == frames for g in good.values()),
+                  f"envelope {db} dB: not every decoder recovers "
+                  f"{frames}/{frames}")
+
+    faults = {db: c["faults"] for db, c in cells.items() if c["faults"]}
+    print(f"envelope: frames that stride 1 or the Decoder recovers and the "
+          f"serving default loses (faults of the stride-8 path): "
+          f"{faults or 'none'}; launches {launches}; phase in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # A and B at each shape of this path, on the hardest cell's own
+    # inputs: A at [frames] through (a)'s front end; B on the rows (a)
+    # escalates, padded as resolve pads them, at [FALLBACK_BATCH]; B at
+    # [frames] through (c)'s front end; B on the LLRs the Decoder lists
+    # for one recording it decodes, at [1]
+    pipe = pipes["a"]
+    front = pipe.sc.demod(x)
+    sc_ok = pipe.sc.fetch(pipe.sc._fec_select(front))["ok"]
+    fails = np.flatnonzero(~sc_ok)[:FALLBACK_BATCH]
+    check(fails.size > 0, "envelope: the hardest cell escalated no frame")
+    group = np.full(FALLBACK_BATCH, fails[0], dtype=np.int64)
+    group[: fails.size] = fails
+    esc_llrs = front["llrs"].index_select(
+        0, torch.as_tensor(group, device=x.device))
+    i = min(good["d"])
+    xd = dec.frontend(recs[i], 2)
+    hdr = None
+    for cand in dec.sync.scan(xd):
+        if cand.ok:
+            hdr, _ = dec._decode_header(xd, cand)
+            if hdr is not None:
+                break
+    check(hdr is not None, f"envelope: no header in recording {i}")
+    dec_llrs = dec._demod(xd, cand, hdr[0])[0]
+    entries = [
+        kernel_entry("sc_decode[envelope]", pipe.sc.plan, front["llrs"], 1,
+                     launches["A"]),
+        kernel_entry("scl_decode[envelope]", pipe.scl.plan, esc_llrs,
+                     LIST_SIZE, launches["B escalation"]),
+        kernel_entry("scl_decode[envelope]", pipes["c"].plan,
+                     pipes["c"].demod(x)["llrs"], LIST_SIZE,
+                     launches["B list"]),
+        kernel_entry("scl_decode[envelope]", dec._tables(6).plan, dec_llrs,
+                     LIST_SIZE, launches["B Decoder"])]
+    check(all(e["launches"] > 0 for e in entries),
+          f"envelope: a kernel never launched at its shape: "
+          f"{[(e['shape'], e['launches']) for e in entries]}")
+    summary = {"chain_s": chain_s, "frames": frames,
+               "cells": {str(db): c for db, c in cells.items()},
+               "launches": launches}
     return summary, entries
 
 
@@ -2080,6 +2344,13 @@ def main() -> int:
     print(f"multi-device: phase in {time.perf_counter() - t0:.1f} s on "
           f"{card}")
 
+    # ---- 16. the impaired-channel envelope of the serving defaults --------
+    t0 = time.perf_counter()
+    envelope_summary, envelope_entries = envelope(dev, reset_counts)
+    check(not any(option_counts().values()),
+          f"the envelope's decoders launched {option_counts()}")
+    print(f"envelope: phase in {time.perf_counter() - t0:.1f} s on {card}")
+
     sched = plan.sched
     kernels = [
         {"name": "sc_decode", "route": "cuda",
@@ -2119,7 +2390,8 @@ def main() -> int:
          "ms_1": list_ms["C", 1][0], "plain_ms_1": list_ms["C", 1][1],
          "bound_ms_1": kernel_bound(sched, 1, LIST_SIZE, False)["bound_ms"],
          "escalation_launches": esc_c_launches[2], **main_tier}] + \
-        decode_all_entries + stream_entries + multi_entries + options
+        decode_all_entries + stream_entries + multi_entries + \
+        envelope_entries + options
     for k in kernels:
         print(f"bound {k['name']} at {k['shape']}: {k['bound_ms']:.4f} ms "
               f"({k['bound_by']}: {k['bytes']} bytes, {k['operations']} "
@@ -2134,7 +2406,8 @@ def main() -> int:
         "escalation_ms": esc_ms, "decoder_s": dec_s,
         "decoder_stage_ms": stage_ms, "override_us_per_row": per_row_us,
         "unroll_ladder": ladder, "decode_all": decode_all_summary,
-        "stream_cli": stream_summary, "multi_device": multi_summary}))
+        "stream_cli": stream_summary, "multi_device": multi_summary,
+        "envelope": envelope_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -68,3 +68,13 @@ def generator_matrix() -> np.ndarray:
         g[i, K:] = encode(u)
     g.flags.writeable = False
     return g
+
+
+def is_codeword(bits: np.ndarray) -> bool:
+    """Divisibility of the codeword polynomial by the generator."""
+    g = generator_poly()[::-1]
+    reg = np.asarray(bits, dtype=np.uint8).copy()
+    for i in range(K):
+        if reg[i]:
+            reg[i:i + (N - K + 1)] ^= g
+    return not reg.any()

@@ -1,8 +1,8 @@
 """Polar code construction (frozen-set design), numpy.
 
 Counterpart of ``modem_tpu/fec/freezer.py`` (reference: freezer.cc:14-39
-driving CODE::PolarCodeConst0<16>), with the same algorithm and no disk
-cache: the binary-erasure-channel polarization recursion, where a
+driving CODE::PolarCodeConst0<16>), with the same algorithm: the
+binary-erasure-channel polarization recursion, where a
 channel with erasure probability z splits into a degraded copy 2z - z^2
 (even index) and an upgraded copy z^2 (odd index); the indices with the
 largest erasure probability are frozen.  The design probability follows
@@ -57,3 +57,10 @@ def words_to_mask(words: np.ndarray) -> np.ndarray:
     """Inverse of :func:`mask_to_words`: uint8 bits [32 * len(words)]."""
     return np.unpackbits(np.asarray(words, dtype=np.uint32).view(np.uint8),
                          bitorder="little")
+
+
+def cached_frozen_mask(n: int, k: int, order: int = 16) -> np.ndarray:
+    """The JAX package's name for the mask it caches on disk, where its
+    construction took seconds at order 16; here :func:`frozen_mask`
+    takes ~15 ms at order 16 and is kept for the process."""
+    return frozen_mask(n, k, order)

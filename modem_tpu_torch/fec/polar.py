@@ -21,6 +21,18 @@ import torch
 from .freezer import frozen_mask
 
 
+def polar_transform_np(u: np.ndarray) -> np.ndarray:
+    """Numpy twin of :func:`polar_transform`: x = u F^{(x)m} over GF(2),
+    u [..., N] of 0/1."""
+    x = np.asarray(u, dtype=np.uint8).copy()
+    n = x.shape[-1]
+    lead = x.shape[:-1]
+    for s in range(n.bit_length() - 1):
+        v = x.reshape(*lead, 1 << s, 2, n >> (s + 1))
+        v[..., 0, :] ^= v[..., 1, :]
+    return x
+
+
 def polar_transform(u: torch.Tensor) -> torch.Tensor:
     """x = u F^{(x)m} over GF(2); u is [..., N] uint8 0/1, N a power of
     two.  Returns a new tensor (the butterflies run in place on a copy)."""
@@ -77,6 +89,11 @@ class PolarCode:
             raise ValueError(f"{len(kept)} kept positions, want {self.n}")
         return kept.astype(np.int64)
 
+    @functools.cached_property
+    def shortened_idx(self) -> np.ndarray:
+        """Dropped mother-code positions (known bit 0)."""
+        return self.info_idx[self.k:]
+
     def _index(self, name: str, device) -> torch.Tensor:
         """Host index/mask array ``name`` as a tensor on ``device``,
         copied there once."""
@@ -111,3 +128,33 @@ class PolarCode:
                          dtype=llrs.dtype, device=llrs.device)
         out[..., self._index("kept_idx", llrs.device)] = llrs
         return out
+
+    # -- numpy twins (host tables and tests) --------------------------------
+
+    def encode_systematic_np(self, mesg_bits: np.ndarray) -> np.ndarray:
+        """Numpy twin of :meth:`encode_systematic`."""
+        u = np.zeros(mesg_bits.shape[:-1] + (self.code_len,), dtype=np.uint8)
+        u[..., self.info_idx] = mesg_bits
+        x = polar_transform_np(u)
+        x[..., np.nonzero(self.frozen)[0]] = 0
+        return polar_transform_np(x)
+
+    def shorten_np(self, codeword: np.ndarray) -> np.ndarray:
+        return codeword[..., self.kept_idx]
+
+    def lengthen_np(self, llrs: np.ndarray,
+                    known_llr: float = 9000.0) -> np.ndarray:
+        """Numpy twin of :meth:`lengthen`."""
+        out = np.full(llrs.shape[:-1] + (self.code_len,), known_llr,
+                      dtype=llrs.dtype)
+        out[..., self.kept_idx] = llrs
+        return out
+
+    def extract_info_np(self, codeword: np.ndarray) -> np.ndarray:
+        """Codeword -> the k payload+crc bits (systematic positions)."""
+        return codeword[..., self.info_idx[: self.k]]
+
+
+@functools.lru_cache(maxsize=None)
+def wire_code(n: int, k: int = 43072, order: int = 16) -> PolarCode:
+    return PolarCode(n=n, k=k, order=order)

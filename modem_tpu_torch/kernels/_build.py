@@ -1,4 +1,5 @@
-"""Build the package's CUDA sources with nvcc and load them with ctypes.
+"""Build the package's CUDA sources with nvcc, and its host C++ source
+with the host compiler, and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/modem_tpu_torch/lib<name>_<hash>.so`` at the root of
@@ -10,7 +11,8 @@ library, keyed the same way.  The build runs at first use, never at
 import: machines without ``nvcc`` (and without a GPU) import every module
 of the package.  ``nvcc``'s own report (registers, shared memory and
 spills per kernel, from ``-Xptxas -v``) is kept beside the library as
-``.log``.
+``.log``.  The host runtime ``csrc/<name>.cc`` (:func:`load_host`) is
+built the same way with ``c++`` and the flags of native/Makefile.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2] / "build"
              / "modem_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_CXX = "c++"
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
 
 
 def _nvcc() -> str:
@@ -38,28 +42,42 @@ def _nvcc() -> str:
     return path
 
 
+def _cxx() -> str:
+    path = shutil.which(HOST_CXX)
+    if path is None:
+        raise RuntimeError(f"the host C++ compiler {HOST_CXX!r} is not on "
+                           "PATH: the native host runtime cannot be built")
+    return path
+
+
 def _flags(defines) -> tuple:
     return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
 
 
-def _keyed(stem: str, src: bytes, defines) -> pathlib.Path:
-    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode())
+def _keyed(stem: str, src: bytes, flags: tuple) -> pathlib.Path:
+    digest = hashlib.sha256(src + " ".join(flags).encode())
     return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
 
 
 def library_path(name: str, defines: tuple = ()) -> pathlib.Path:
-    return _keyed(name, (CSRC / f"{name}.cu").read_bytes(), defines)
+    return _keyed(name, (CSRC / f"{name}.cu").read_bytes(), _flags(defines))
 
 
-def _compile(lib: pathlib.Path, source: pathlib.Path, defines) -> None:
+def host_library_path(name: str) -> pathlib.Path:
+    return _keyed(name, (CSRC / f"{name}.cc").read_bytes(), HOST_FLAGS)
+
+
+def _compile(lib: pathlib.Path, source: pathlib.Path, defines,
+             host: bool = False) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *_flags(defines), "-o", str(tmp), str(source)],
-        capture_output=True, text=True)
+    compiler, flags = ((_cxx(), HOST_FLAGS) if host
+                       else (_nvcc(), _flags(defines)))
+    proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True)
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {source.name}:\n"
-                           f"{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"{os.path.basename(compiler)} failed on "
+                           f"{source.name}:\n{proc.stdout}{proc.stderr}")
     # both renames are atomic, so processes building the same library
     # at once (the ranks of one machine) each leave a whole file
     log = lib.with_suffix(".log")
@@ -79,8 +97,19 @@ def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
+@functools.lru_cache(maxsize=None)
+def load_host(name: str) -> ctypes.CDLL:
+    """Build csrc/<name>.cc with the host C++ compiler if its library is
+    missing, then load it; raises RuntimeError, with the compiler's
+    output, if it cannot be built."""
+    lib = host_library_path(name)
+    if not lib.exists():
+        _compile(lib, CSRC / f"{name}.cc", (), host=True)
+    return ctypes.CDLL(str(lib))
+
+
 def generated_path(stem: str, text: str) -> pathlib.Path:
-    return _keyed(stem, text.encode(), ())
+    return _keyed(stem, text.encode(), _flags(()))
 
 
 def load_generated(stem: str, text: str) -> ctypes.CDLL:

@@ -14,6 +14,7 @@ Layout quirks kept from the reference:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 RCP_SQRT_2 = 0.70710678118654752440
@@ -80,3 +81,16 @@ def mod_soft(mod_bits: int, sym: torch.Tensor,
         return torch.stack([q(re), q(im)], dim=-1)
     b0 = q(RCP_SQRT_2 * (re.abs() - im.abs()))
     return torch.stack([b0, q(re), q(im)], dim=-1)
+
+
+def mod_map_np(mod_bits: int, bits: np.ndarray) -> np.ndarray:
+    """Numpy twin of :func:`mod_map` in complex128 (for host tables)."""
+    bits = np.asarray(bits, dtype=np.float64)
+    if mod_bits == 1:
+        return bits[..., 0].astype(np.complex128)
+    if mod_bits == 2:
+        return RCP_SQRT_2 * (bits[..., 0] + 1j * bits[..., 1])
+    swap = bits[..., 0] < 0
+    re = np.where(swap, SIN_PI_8, COS_PI_8) * bits[..., 1]
+    im = np.where(swap, COS_PI_8, SIN_PI_8) * bits[..., 2]
+    return re + 1j * im

@@ -7,10 +7,12 @@ the module.  Compared exactly: return codes, payload files, every
 stderr line but those that print floats of a transcript or a PAPR
 (``%.4g`` / ``%.6g`` of f32 sums that round differently between
 torch.fft and the JAX package's matmul DFT), which are parsed and held
-within tolerance, and the impairment tools' WAVs (written by the JAX
-package's numpy codec, as the port's).  Encoded WAVs are
-held to tests/test_waveform_pin.py's rule: |diff| <= 1 LSB on < 0.5 % of
-the samples.
+within tolerance, and the impairment tools' WAVs, byte for byte (both
+packages read and write regular files through their native codecs, the
+port's a copy of the JAX package's).  Encoded WAVs are held to
+tests/test_waveform_pin.py's rule: |diff| <= 1 LSB on < 0.5 % of the
+samples (torch.fft and the matmul DFT round differently before the
+quantiser).
 """
 
 import io
@@ -387,14 +389,11 @@ def impair_src(tmp_path_factory):
     ["cfo", "234.567"], ["sfo", "147"], ["awgn", "-30", "7"], ["awgn", "-20"],
     ["multipath", "-", "10"], ["multipath"], ["multipath", "TAPS", "2"]],
     ids="-".join)
-def test_impairments_match_jax(impair_src, args, channels, tmp_path, capsys,
-                               monkeypatch):
-    """Output WAVs byte for byte the JAX CLI's, with its WAV codec the
-    numpy one the port carries (its native codec rounds half away from
-    zero in f32, numpy half to even in f64)."""
-    from modem_tpu import native
-    monkeypatch.setattr(native, "wav_read", lambda *a, **k: None)
-    monkeypatch.setattr(native, "wav_write", lambda *a, **k: False)
+def test_impairments_match_jax(impair_src, args, channels, tmp_path, capsys):
+    """Output WAVs byte for byte the JAX CLI's, each package reading and
+    writing through its own native codec (f32, ties away from zero)."""
+    from modem_tpu import native as jnative
+    assert jnative.available()
     args = [str(impair_src / "taps.txt") if a == "TAPS" else a for a in args]
     src = str(impair_src / f"src{channels}.wav")
     got = port([args[0], str(tmp_path / "p.wav"), src] + args[1:], capsys)

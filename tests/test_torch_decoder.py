@@ -21,7 +21,11 @@ encoder or the frozen golden WAV):
   1e-3 Hz, sfo_ppm within 1e-3 ppm, snr_db within rtol 1e-4 (f32 FFTs
   round differently); the transcript line for line, with the numbers of
   the coarse cfo, coarse sfo, finer cfo and Es/N0 lines within the same
-  tolerances.
+  tolerances;
+- the same on a mode-6 recording through the reference impairment chain
+  (multipath x10, cfo 234.567 Hz, sfo 147 ppm) at -18 dB, the geometry
+  of chip_smoke.py's envelope (phase 16): the interactive decoder of the
+  port and of the JAX package agree on every exact field at the cliff.
 """
 
 import io
@@ -34,6 +38,7 @@ import pytest
 import torch
 
 from modem_tpu import bits as jbits
+from modem_tpu import channel as jchannel
 from modem_tpu import dsp as jdsp
 from modem_tpu import sync as jsync
 from modem_tpu import track as jtrack
@@ -345,6 +350,32 @@ def test_decoder_matches_jax(port_decoder, name, channels):
     assert abs(got.sfo_ppm - want.sfo_ppm) <= 1e-3
     assert np.allclose(got.snr_db, want.snr_db, rtol=1e-4)
     assert_same_transcript(log.getvalue(), jlog.getvalue())
+
+
+def test_decoder_matches_jax_impaired(port_decoder):
+    """Phase 16's first recording at its hardest level: 0.5 s of silence
+    either side, the payload of default_rng(0), the reference chain with
+    AWGN at -18 dB from default_rng(100)."""
+    cfg = make_config(8000, 6, 2000)
+    rng = np.random.default_rng(0)
+    payload = rng.integers(0, 256, cfg.mode.data_bytes,
+                           dtype=np.uint8).tobytes()
+    waves, _ = cached_encoder(cfg).encode_batch(
+        [payload], jbits.base37_encode("N0CALL"))
+    sil = np.zeros(cfg.rate // 2, dtype=np.complex64)
+    clean = np.concatenate([sil, np.asarray(waves[0]), sil])
+    rec = jchannel.reference_chain(clean, 8000, awgn_db=-18.0,
+                                   rng=np.random.default_rng(100))
+    rec = rec[: len(clean)].astype(np.complex64)
+    got = port_decoder.decode(rec, channels=2)
+    want = jax_cached_decoder(8000).decode(rec, channels=2)
+    for key in ("ok", "payload", "oper_mode", "call_sign", "symbol_pos",
+                "bit_flips", "status"):
+        assert getattr(got, key) == getattr(want, key), key
+    if want.ok:
+        assert abs(got.cfo_hz - want.cfo_hz) <= 1e-3
+        assert abs(got.sfo_ppm - want.sfo_ppm) <= 1e-3
+        assert np.allclose(got.snr_db, want.snr_db, rtol=1e-4)
 
 
 def test_decoder_reports_no_preamble(port_decoder):

@@ -1,6 +1,9 @@
 """The port's numpy host modules equal the JAX package's originals:
-numerology, bits (CRC, scrambler, MLS, base37), the frozen-set design,
-the BCH encoder, the decoder schedule, and the polar transforms."""
+numerology, bits (CRC, scrambler, MLS, base37, MSB-first packing), the
+frozen-set design, the BCH encoder and codeword check, the decoder
+schedule, the polar transforms and their numpy twins, the PSK map's
+numpy twin, and the exhaustive OSD oracle (``fec/osd_np``), which the
+port's batched ``fec.osd.osd_decode`` equals in turn."""
 
 import numpy as np
 import pytest
@@ -8,13 +11,15 @@ import torch
 
 from modem_tpu import bits as jbits
 from modem_tpu import numerology as jnum
+from modem_tpu import psk as jpsk
 from modem_tpu.fec import bch as jbch
 from modem_tpu.fec import freezer as jfreezer
+from modem_tpu.fec import osd_np as josd_np
 from modem_tpu.fec import polar as jpolar
 from modem_tpu.fec import scl_vm
 from modem_tpu.parallel import toy_config as jax_toy_config
-from modem_tpu_torch import bits, numerology
-from modem_tpu_torch.fec import bch, freezer, polar, schedule
+from modem_tpu_torch import bits, numerology, psk
+from modem_tpu_torch.fec import bch, freezer, osd, osd_np, polar, schedule
 
 
 @pytest.mark.parametrize("rate", [8000, 16000, 44100, 48000])
@@ -230,3 +235,116 @@ def test_receiver_geometry_matches(rate, convention):
     assert kern.shape == ((3, port.L) if convention == "auto" else (port.L,))
     assert np.allclose(kern.reshape(-1, port.L),
                        ref.kerns[..., 0] + 1j * ref.kerns[..., 1], atol=1e-6)
+
+
+# -- the numpy helpers --------------------------------------------------------
+
+@pytest.mark.parametrize("n", [0, 1, 9, 640])
+def test_be_packing_and_payload_crc_match(n):
+    data = np.random.default_rng(n).integers(0, 256, n,
+                                             dtype=np.uint8).tobytes()
+    b = bits.bytes_to_bits_be(data)
+    assert b.dtype == np.uint8
+    assert np.array_equal(b, jbits.bytes_to_bits_be(data))
+    assert bits.bits_to_bytes_be(b) == jbits.bits_to_bytes_be(b) == data
+    odd = np.random.default_rng(n).integers(0, 2, 8 * n + 5, dtype=np.uint8)
+    assert bits.bits_to_bytes_be(odd) == jbits.bits_to_bytes_be(odd)
+    assert bits.payload_crc32(data) == jbits.payload_crc32(data)
+
+
+@pytest.mark.parametrize("n,k,order", [(224, 144, 8), (960, 480, 10),
+                                       (64800, 43072, 16)])
+def test_polar_numpy_twins_match(n, k, order):
+    a, b = polar.PolarCode(n, k, order), jpolar.PolarCode(n, k, order)
+    assert np.array_equal(a.frozen, b.frozen)
+    assert np.array_equal(a.shortened_idx, b.shortened_idx)
+    rng = np.random.default_rng(order)
+    m = rng.integers(0, 2, (2, b.mesg_bits), dtype=np.uint8)
+    cw = a.encode_systematic_np(m)
+    assert np.array_equal(cw, b.encode_systematic_np(m))
+    assert np.array_equal(cw, a.encode_systematic(torch.from_numpy(m)).numpy())
+    assert np.array_equal(a.shorten_np(cw), b.shorten_np(cw))
+    assert np.array_equal(a.extract_info_np(cw), b.extract_info_np(cw))
+    assert np.array_equal(a.extract_info_np(cw), m[:, : k])
+    llrs = rng.standard_normal((2, n)).astype(np.float32)
+    assert np.array_equal(a.lengthen_np(llrs), b.lengthen_np(llrs))
+    assert np.array_equal(a.lengthen_np(llrs, 5.0),
+                          b.lengthen_np(llrs, 5.0))
+    u = rng.integers(0, 2, (2, 1 << order), dtype=np.uint8)
+    assert np.array_equal(polar.polar_transform_np(u),
+                          jpolar.polar_transform_np(u))
+
+
+@pytest.mark.parametrize("n", [64800, 64512])
+def test_wire_code_matches(n):
+    a, b = polar.wire_code(n), jpolar.wire_code(n)
+    assert a is polar.wire_code(n)
+    assert (a.n, a.k, a.order, a.code_len, a.mesg_bits) == (
+        b.n, b.k, b.order, b.code_len, b.mesg_bits)
+    assert np.array_equal(a.frozen, b.frozen)
+    assert np.array_equal(a.kept_idx, b.kept_idx)
+
+
+@pytest.mark.parametrize("mod_bits", [1, 2, 3])
+def test_mod_map_np_matches(mod_bits):
+    rng = np.random.default_rng(mod_bits)
+    nrz = 1.0 - 2.0 * rng.integers(0, 2, (5, 7, mod_bits))
+    got = psk.mod_map_np(mod_bits, nrz)
+    assert got.dtype == np.complex128
+    assert np.array_equal(got, jpsk.mod_map_np(mod_bits, nrz))
+    assert np.allclose(got, psk.mod_map(mod_bits, torch.from_numpy(
+        nrz)).numpy(), atol=1e-6)
+
+
+def test_is_codeword_matches():
+    g = bch.generator_matrix()
+    rng = np.random.default_rng(6)
+    for _ in range(3):
+        cw = (rng.integers(0, 2, 71, dtype=np.uint8) @ g) % 2
+        bad = cw.copy()
+        bad[rng.integers(0, 255)] ^= 1
+        assert bch.is_codeword(cw) and jbch.is_codeword(cw)
+        assert not bch.is_codeword(bad) and not jbch.is_codeword(bad)
+
+
+@pytest.mark.parametrize("n,k,order", [(224, 144, 8), (960, 480, 10),
+                                       (64800, 43072, 16),
+                                       (64800, 43104, 16)])
+def test_cached_frozen_mask_matches(n, k, order):
+    """Against the JAX package's tables on disk (fec/tables)."""
+    assert np.array_equal(freezer.cached_frozen_mask(n, k, order),
+                          jfreezer.cached_frozen_mask(n, k, order))
+
+
+# -- the exhaustive OSD oracle -------------------------------------------------
+
+def _osd_soft(case):
+    """tests/test_osd.py's regimes: the sensitivity edge, coarse
+    quantisation (frequent ties) and a block of erasures only."""
+    if case == "erased":
+        return np.zeros(255)
+    sigma, quant = {"edge": (0.9, 32), "coarse": (1.0, 4)}[case]
+    rng = np.random.default_rng(777 + quant)
+    u = rng.integers(0, 2, 71, dtype=np.uint8)
+    x = (1.0 - 2.0 * ((u @ bch.generator_matrix()) % 2)
+         + rng.normal(0, sigma, 255))
+    return np.clip(np.rint(x * quant), -127, 127).astype(np.float64)
+
+
+@pytest.mark.parametrize("case", ["edge", "coarse", "erased"])
+def test_osd_np_matches_jax(case):
+    """Every field of the oracle equals JAX's, and the port's batched
+    matmul OSD equals the oracle (data bits and the uniqueness flag)."""
+    soft = _osd_soft(case)
+    g = bch.generator_matrix()
+    perm = np.argsort(-np.abs(soft), kind="stable")
+    red, piv = osd_np._rref_gf2_np(g[:, perm], 71)
+    jred, jpiv = josd_np._rref_gf2_np(g[:, perm], 71)
+    assert np.array_equal(red, jred) and np.array_equal(piv, jpiv)
+    data, unique = osd_np.osd_decode_np(soft)
+    jdata, junique = josd_np.osd_decode_np(soft)
+    assert data.dtype == np.uint8 and np.array_equal(data, jdata)
+    assert unique == junique and isinstance(unique, bool)
+    bd, bu = osd.osd_decode(torch.from_numpy(soft[None]).to(torch.int8))
+    assert np.array_equal(bd[0].numpy(), data) and bool(bu[0]) == unique
+    assert unique == (case != "erased")

@@ -37,7 +37,9 @@ def test_every_module_is_listed():
                  "modem_tpu_torch.wav", "modem_tpu_torch.ingest",
                  "modem_tpu_torch.channel", "modem_tpu_torch.stream",
                  "modem_tpu_torch.cli", "modem_tpu_torch.mesh",
-                 "modem_tpu_torch.parallel"):
+                 "modem_tpu_torch.parallel", "modem_tpu_torch.native",
+                 "modem_tpu_torch.profiling", "modem_tpu_torch.debug",
+                 "modem_tpu_torch.fec.osd_np"):
         assert name in mods
 
 
@@ -65,3 +67,4 @@ def test_csrc_is_packaged():
     for name in ("sc_decode", "scl_decode", "probe_p256", "probe_rank3",
                  "probe_interleave"):
         assert (ROOT / "csrc" / f"{name}.cu").exists()
+    assert (ROOT / "csrc" / "modem_host.cc").exists()

@@ -6,9 +6,10 @@ tests/test_ingest.py's: toy frames from the JAX encoder at 2 kHz,
 seeded noise, quantised to int16 or uint8, mono or stereo):
 
 - ``wav``: the golden files read alike (wire-dtype samples equal, the
-  floats equal to JAX's numpy dequantisation and within one f32 ulp,
-  6e-8, of its native codec's, which rounds 1/32767 first), and files of
-  8 and 16 bits, mono and stereo, written by each package byte for byte
+  floats equal to JAX's, both read by their native codecs, and within
+  one f32 ulp, 6e-8, of the numpy dequantisation, which divides where
+  the native codec multiplies by 1/32767 rounded first), and files of 8
+  and 16 bits, mono and stereo, written by each package byte for byte
   alike and read back alike by the other;
 - ``channel``: each function equal to JAX's on the same seed within
   1e-6 (``sfo`` within f32 tolerance, 1e-5);
@@ -101,10 +102,11 @@ def port_sync():
 def assert_reads_alike(path, got, want):
     raw = jwav.read_wav_raw(path)
     numpy_path = jwav._dequantize(np.asarray(raw.data).tobytes(), raw.bits)
-    assert np.array_equal(got.samples.reshape(-1), numpy_path)
-    assert got.samples.shape == want.samples.shape
-    assert np.abs(got.samples - want.samples).max() <= 6e-8
-    assert np.abs(got.analytic - want.analytic).max() <= 1e-7   # |re, im|
+    assert np.array_equal(got.samples, want.samples)
+    assert np.array_equal(got.analytic, want.analytic)
+    assert np.abs(got.samples.reshape(-1) - numpy_path).max() <= 6e-8
+    assert np.array_equal(
+        wav._dequantize(np.asarray(raw.data).tobytes(), raw.bits), numpy_path)
 
 
 @pytest.mark.parametrize("name", GOLDEN)

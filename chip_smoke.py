@@ -84,9 +84,15 @@ Phases:
      same LLRs (codewords equal, pm within rtol 1e-4);
  12. the probes D (p256), E (rank3) and F (interleave): each kernel
      against its plain twin at small R (tolerances in the modules; F's
-     output and its pm each at their own), then the timings at the
-     original probes' R, with F's verdicts (chain, leaf and the narrow
-     width-4 body: single, dual, dual through shared barriers, double);
+     output and its pm each at their own), D and F at every cluster size
+     they are timed at (D's [P, 512] state on chip across a thread-block
+     cluster of 2, 4, 8, 16 blocks at P = 128 and 4, 8, 16 at P = 256;
+     F's 128 rows over 1, 2, 4, 8 blocks), then the timings at the
+     original probes' R: microseconds an iteration at each cluster size
+     with the bound and the share, D's P = 256 / 128 ratios, F's verdicts
+     (chain, leaf and the narrow width-4 body: single, dual, dual through
+     shared barriers, double) at each cluster size; the build (phase 2)
+     fails if ptxas gives a kernel of D or F a stack frame or spills;
  13. decode-all (decode_recording_auto, each drive a warm-up call then a
      timed one with the counts at 0 just before): an hour of mono int16
      at 8 kHz (28,800,000 samples, 12 mode-6 frames at seeded offsets,
@@ -310,6 +316,19 @@ def build_all(libraries: dict) -> dict:
         futs = {name: pool.submit(one, load)
                 for name, load in libraries.items()}
         return {name: f.result() for name, f in futs.items()}
+
+
+def stack_frames(ptxas_log: str) -> dict:
+    """{kernel: (stack frame bytes, spill store bytes, spill load bytes)}
+    from nvcc's -Xptxas -v report."""
+    out, name = {}, None
+    for line in ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "bytes stack frame" in line:
+            out[name] = tuple(int(w) for w in line.split()
+                              if w.isdigit())[:3]
+    return out
 
 
 def turns_ms(first, second, reps: int):
@@ -1513,6 +1532,14 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip())
+        if name in ("probe_p256", "probe_interleave"):
+            frames = stack_frames(log.read_text())
+            off_chip = {k: v for k, v in frames.items() if any(v)}
+            check(frames and not off_chip,
+                  f"{name}: a kernel keeps state off chip (ptxas stack "
+                  f"frame, spill stores, spill loads): {off_chip}")
+            print(f"  {name}: {len(frames)} kernels, no stack frame, no "
+                  "spill (the state stays in registers and shared memory)")
 
     # ---- 3. SC kernel vs plain version, noisy wire-size frames ----------
     code = PolarCode(64800, 43072, 16)
@@ -2205,34 +2232,58 @@ def main() -> int:
           f"{unroll.MAX_ROWS} rows on the card")
 
     # ---- 12. probes D, E, F ----------------------------------------------
-    # each held to its plain twin at small R first, then its timing run is
-    # the drive (counts at 0 just before, read just after)
+    # each held to its plain twin at small R first (D and F at every
+    # cluster size), then its timing run is the drive (counts at 0 just
+    # before, read just after)
     t0 = time.perf_counter()
     d_err = p256.check(dev)
-    d_times, _ = drive(lambda: p256.timings(dev),
-                       lambda: sum(p256.run.launches.values()), "probe D")
+    (d_ms, d_plain), _ = drive(lambda: p256.timings(dev),
+                               lambda: sum(p256.run.launches.values()),
+                               "probe D")
     d_launches = dict(p256.run.launches)
     for k, body in enumerate(p256.BODIES):
-        check(d_launches.get(body, 0) > 0, f"probe D {body} never launched")
-        (ms128, pl128), (ms256, pl256) = (d_times[body, P]
-                                          for P in p256.PS)
+        us = {}
+        for P in p256.PS:
+            bound_us = p256.bound(body, P, p256.R)["bound_ms"] * 1e3 / p256.R
+            for n in p256.CLUSTERS[P]:
+                check(d_launches.get((body, P, n), 0) > 0,
+                      f"probe D {body} at P={P}, cluster {n} never launched")
+                us[P, n] = d_ms[body, P, n] * 1e3 / p256.R
+            print(f"probe D {p256.LABELS[k]:34s} P={P}: us/iter by cluster "
+                  "size " + ", ".join(f"{n}: {us[P, n]:.3f}"
+                                      for n in p256.CLUSTERS[P])
+                  + f"; bound {bound_us:.6f} us/iter, share "
+                  + ", ".join(f"{bound_us / us[P, n]:.2%}"
+                              for n in p256.CLUSTERS[P])
+                  + f" (plain twin {d_plain[body, P] * 1e3 / p256.R:.2f}"
+                  " us/iter)")
+        n128, n256 = p256.CLUSTERS[128][0], p256.CLUSTERS[256][0]
+        ratios = {n: d_ms[body, 256, n] / d_ms[body, 128, n]
+                  for n in p256.CLUSTERS[256]}
+        print(f"probe D {body}: ratio P=256 / P=128 by cluster size "
+              + ", ".join(f"{n}: {r:.2f}x" for n, r in ratios.items())
+              + f"; at each P's smallest cluster "
+              f"{d_ms[body, 256, n256] / d_ms[body, 128, n128]:.2f}x")
         options.append({
             "name": f"probe_p256[{body}]", "route": "cuda",
             "source": "modem_tpu_torch/csrc/probe_p256.cu",
             "replaces": "bench/probe_p256.py:45",
-            "launches": d_launches[body],
-            "max_abs_err": d_err[body], "ms": ms128, "plain_ms": pl128,
+            "launches": sum(v for (b, _, _), v in d_launches.items()
+                            if b == body),
+            "max_abs_err": d_err[body], "ms": d_ms[body, 128, n128],
+            "plain_ms": d_plain[body, 128],
             **p256.bound(body, 128, p256.R), "library_ms": None,
-            "shape": [128, p256.COLS], "reps": p256.R,
-            "us_per_iter": ms128 * 1e3 / p256.R, "ms_256": ms256,
-            "plain_ms_256": pl256,
+            "shape": [128, p256.COLS], "reps": p256.R, "cluster": n128,
+            "us_per_iter": us[128, n128],
+            "us_per_iter_by_cluster": {
+                str(P): {str(n): us[P, n] for n in p256.CLUSTERS[P]}
+                for P in p256.PS},
+            "ms_256": d_ms[body, 256, n256], "cluster_256": n256,
+            "plain_ms_256": d_plain[body, 256],
             "bound_ms_256": p256.bound(body, 256, p256.R)["bound_ms"],
-            "ratio_256_128": ms256 / ms128})
-        print(f"probe D {p256.LABELS[k]:34s}: P=128 "
-              f"{ms128 * 1e3 / p256.R:.3f} us/iter, P=256 "
-              f"{ms256 * 1e3 / p256.R:.3f} us/iter, ratio "
-              f"{ms256 / ms128:.2f}x (plain twin {pl128 * 1e3 / p256.R:.2f} "
-              f"/ {pl256 * 1e3 / p256.R:.2f} us/iter)")
+            "ratio_256_128": d_ms[body, 256, n256] / d_ms[body, 128, n128],
+            "ratio_256_128_by_cluster": {str(n): r
+                                         for n, r in ratios.items()}})
     x_e = rank3.inputs()
     xt_e = torch.from_numpy(x_e).to(dev)
     e_err = {}
@@ -2258,7 +2309,8 @@ def main() -> int:
               f"plain twin {e_plain * 1e3:.2f} us")
     f_err = interleave.check(dev)
     reps = INTERLEAVE_REPS
-    f_t, _ = drive(lambda: interleave.timings(reps, WIDTH_REPS, dev),
+    f_t, _ = drive(lambda: {c: interleave.timings(reps, WIDTH_REPS, dev, c)
+                            for c in interleave.CLUSTERS},
                    lambda: sum(interleave.run.launches.values()), "probe F")
     f_launches = dict(interleave.run.launches)
     x_f = interleave.inputs(1).to(dev)
@@ -2272,52 +2324,80 @@ def main() -> int:
         ("narrow", ":177", interleave.NARROW, WIDTH_REPS,
          lambda: interleave.run_width_plain(x_n, interleave.NARROW,
                                             WIDTH_REPS)))
+    c1 = interleave.CLUSTERS[0]
     for body, site, width, r, plain in f_rows:
-        for key in (body, f"{body}_shared"):
-            check(key == "chain_shared" or f_launches.get(key, 0) > 0,
-                  f"probe F {key} never launched")
-        t = f_t[body]
+        for c in interleave.CLUSTERS:
+            for key in (body, f"{body}_shared"):
+                check(key == "chain_shared" or f_launches.get((key, c), 0) > 0,
+                      f"probe F {key} at cluster {c} never launched")
         f_plain = cuda_ms(plain, 1)
-        entry = {
+        bound = interleave.bound("width" if body == "narrow" else body, 1, r,
+                                 width)
+        by_cluster = {}
+        for c in interleave.CLUSTERS:
+            t = f_t[c][body]
+            by_cluster[str(c)] = {
+                **{f"{k}_ms": v for k, v in t.items()},
+                "us_per_iter": t["single"] * 1e3 / r,
+                "verdict": interleave.verdict(t["single"], t["dual"],
+                                              t["double"]),
+                **({"shared_verdict": interleave.verdict(
+                    t["single"], t["shared"], t["double"])}
+                   if "shared" in t else {})}
+            print(f"probe F, cluster {c}, {r} reps, "
+                  f"{t['single'] * 1e3 / r:.3f} us/iter single, bound "
+                  f"{bound['bound_ms'] * 1e3 / r:.6f} us/iter, share "
+                  f"{bound['bound_ms'] / t['single']:.2%}, plain twin single "
+                  f"{f_plain:.1f} ms: " + interleave.report(body, t))
+        t = f_t[c1][body]
+        options.append({
             "name": f"probe_interleave[{body}]", "route": "cuda",
             "source": "modem_tpu_torch/csrc/probe_interleave.cu",
             "replaces": f"bench/probe_interleave.py{site}",
-            "launches": f_launches[body] + f_launches.get(f"{body}_shared", 0),
+            "launches": sum(v for (k, _), v in f_launches.items()
+                            if k in (body, f"{body}_shared")),
             "max_abs_err": f_err, "ms": t["single"], "plain_ms": f_plain,
-            **interleave.bound("width" if body == "narrow" else body, 1, r,
-                               width),
-            "library_ms": None, "shape": [interleave.P, width], "reps": r,
-            "dual_ms": t["dual"], "double_ms": t["double"],
+            **bound, "library_ms": None, "shape": [interleave.P, width],
+            "reps": r, "cluster": c1, "dual_ms": t["dual"],
+            "double_ms": t["double"],
             "verdict": interleave.verdict(t["single"], t["dual"],
-                                          t["double"])}
-        if "shared" in t:
-            entry.update(shared_dual_ms=t["shared"],
-                         shared_verdict=interleave.verdict(
-                             t["single"], t["shared"], t["double"]))
-        options.append(entry)
-        print(f"probe F, {r} reps, plain twin single {f_plain:.1f} ms: "
-              + interleave.report(body, t))
-    check(f_launches.get("width", 0) > 0, "probe F width never launched")
-    w_ms = f_t["width"]
+                                          t["double"]),
+            "by_cluster": by_cluster})
+        pace = ", ".join(f"{c}: {f_t[c][body]['single'] * 1e3 / r:.3f}"
+                         for c in interleave.CLUSTERS)
+        print(f"probe F {body}: us/iter single by cluster size {pace}")
+    w_us = {c: {w: f_t[c]["width"][w] * 1e3 / WIDTH_REPS for w in (128, 256)}
+            for c in interleave.CLUSTERS}
+    for c in interleave.CLUSTERS:
+        check(f_launches.get(("width", c), 0) > 0,
+              f"probe F width at cluster {c} never launched")
     w_plain = cuda_ms(lambda: interleave.run_width_plain(x_w, 128, WIDTH_REPS),
                       1)
+    w_bound = interleave.bound("width", 1, WIDTH_REPS)
     options.append({
         "name": "probe_interleave[width]", "route": "cuda",
         "source": "modem_tpu_torch/csrc/probe_interleave.cu",
         "replaces": "bench/probe_interleave.py:177",
-        "launches": f_launches["width"], "max_abs_err": f_err,
-        "ms": w_ms[128], "plain_ms": w_plain,
-        **interleave.bound("width", 1, WIDTH_REPS), "library_ms": None,
-        "shape": [interleave.P, 128], "reps": WIDTH_REPS,
-        "ms_256": w_ms[256],
+        "launches": sum(v for (k, _), v in f_launches.items()
+                        if k == "width"),
+        "max_abs_err": f_err, "ms": f_t[c1]["width"][128],
+        "plain_ms": w_plain, **w_bound, "library_ms": None,
+        "shape": [interleave.P, 128], "reps": WIDTH_REPS, "cluster": c1,
+        "ms_256": f_t[c1]["width"][256],
         "bound_ms_256": interleave.bound("width", 1, WIDTH_REPS,
-                                         256)["bound_ms"]})
-    print(f"probe F width: 128 {w_ms[128]:.3f} ms, 256 {w_ms[256]:.3f} ms "
-          f"({w_ms[256] / w_ms[128]:.2f}x) at {WIDTH_REPS} reps (plain twin "
-          f"at 128 {w_plain:.1f} ms); probes in {time.perf_counter() - t0:.1f}"
-          " s")
+                                         256)["bound_ms"],
+        "us_per_iter_by_cluster": {str(c): {str(w): v for w, v in u.items()}
+                                   for c, u in w_us.items()}})
+    print(f"probe F width, {WIDTH_REPS} reps, us/iter by cluster size: "
+          + "; ".join(f"{c}: 128 {u[128]:.3f}, 256 {u[256]:.3f} "
+                      f"({u[256] / u[128]:.2f}x)" for c, u in w_us.items())
+          + f"; bound at 128 {w_bound['bound_ms'] * 1e3 / WIDTH_REPS:.6f} "
+          f"us/iter (plain twin at 128 {w_plain:.1f} ms); probes in "
+          f"{time.perf_counter() - t0:.1f} s")
     print("probe launches, each probe's timing run: D "
-          f"{d_launches}, E {e_launches}, F {f_launches}")
+          f"{sum(d_launches.values())} ({len(d_launches)} body, P, cluster "
+          f"cells), E {e_launches}, F {sum(f_launches.values())} "
+          f"({len(f_launches)} variant, cluster cells)")
 
     # ---- 13. decode-all ----------------------------------------------------
     t0 = time.perf_counter()

@@ -99,15 +99,20 @@ def _gf2_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.remainder(a.float() @ b.float(), 2.0).to(torch.uint8)
 
 
-def osd_decode(soft, genmat: np.ndarray | None = None):
+def osd_decode(soft, genmat: np.ndarray | None = None, order: int = 4):
     """Order-4 OSD of a batch of received header blocks.
 
     soft: [..., 255] integer-valued soft bits (positive = bit 0), any
     numeric dtype, on the device to decode on.  genmat: the [71, 255]
-    systematic generator matrix (default BCH(255,71)).  Returns (data
-    bits [..., 71] uint8, unique [...] bool): the decoded information
-    bits and whether the best candidate is the only minimiser.
+    systematic generator matrix (default BCH(255,71)).  order: the
+    search order; only the reference's 4 is implemented (ValueError on
+    another).  Returns (data bits [..., 71] uint8, unique [...] bool):
+    the decoded information bits and whether the best candidate is the
+    only minimiser.
     """
+    if order != 4:
+        raise ValueError(f"OSD order {order}: only the reference's "
+                         "order-4 search is implemented")
     if genmat is None:
         genmat = bch.generator_matrix()
     soft = torch.as_tensor(soft)

@@ -103,14 +103,15 @@ class PolarCode:
                                                    device=device)
         return self._on_device[key]
 
-    def encode_systematic(self, mesg: torch.Tensor) -> torch.Tensor:
+    def encode_systematic(self, mesg_bits: torch.Tensor) -> torch.Tensor:
         """[..., mesg_bits] uint8 info bits -> [..., code_len] codeword
         with the info bits verbatim at ``info_idx``."""
-        u = torch.zeros(mesg.shape[:-1] + (self.code_len,),
-                        dtype=torch.uint8, device=mesg.device)
-        u[..., self._index("info_idx", mesg.device)] = mesg.to(torch.uint8)
+        u = torch.zeros(mesg_bits.shape[:-1] + (self.code_len,),
+                        dtype=torch.uint8, device=mesg_bits.device)
+        u[..., self._index("info_idx", mesg_bits.device)] = mesg_bits.to(
+            torch.uint8)
         x = polar_transform(u)
-        x *= self._index("info_mask", mesg.device)
+        x *= self._index("info_mask", mesg_bits.device)
         return polar_transform(x)
 
     @functools.cached_property

@@ -27,6 +27,12 @@ Every kernel returns (out, pm), each [1, P]: the probe's output (pm plus
 the column sums of the states) and the path metrics alone, each held to
 its twin at its own tolerance.
 
+Every kernel spreads the 128 rows over a thread-block cluster of
+:data:`CLUSTERS` blocks (one an SM), its barriers cluster barriers; the
+verdict is read at each size.  The question it answers for the list
+decoder at one frame: at which cluster size does the cluster barrier,
+not one SM's issue rate, set the pace.
+
 Run: ``python3 -m modem_tpu_torch.probes.interleave [reps]`` (default
 2000) or ``... interleave width [reps]`` (default 50000), on the card.
 Each kernel is first held to its twin at 8 iterations (a failure raises).
@@ -50,6 +56,7 @@ F = P // L
 BODIES = ("chain", "leaf")
 NARROW = 4
 CHECK_REPS = 8
+CLUSTERS = (1, 2, 4, 8)
 # kernel against twin: the rows' states are the same IEEE operations in
 # both, so x is exact; the output's column sums are taken in another
 # order (RTOL, ATOL), and so are the row sums that go into pm, which is
@@ -145,11 +152,12 @@ def run_width_plain(x: torch.Tensor, width: int, reps: int,
 def library():
     """csrc/probe_interleave.cu, built at first use and loaded."""
     return _common.library("probe_interleave",
-                           ("i", "i", "i", "i", "p", "i", "i", "p", "p"))
+                           ("i", "i", "i", "i", "p", "i", "i", "p", "i",
+                            "p"))
 
 
 def _launch(key: str, body: int, n_chains: int, width: int, shared: bool,
-            x: torch.Tensor, reps: int) -> tuple:
+            x: torch.Tensor, reps: int, cluster: int) -> tuple:
     if x.dim() != 3 or x.shape[0] < n_chains or x.shape[1] != P:
         raise ValueError(f"state of shape {tuple(x.shape)}: want "
                          f"[>= {n_chains}, {P}, width]")
@@ -157,42 +165,53 @@ def _launch(key: str, body: int, n_chains: int, width: int, shared: bool,
     out = torch.empty(2, P, dtype=torch.float32, device=x.device)
     rc = lib.probe_interleave_launch(
         body, n_chains, width, int(shared), x.data_ptr(), x.shape[2], reps,
-        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+        out.data_ptr(), cluster,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _common.check_rc(lib, "probe_interleave", rc)
-    run.launches[key] += 1
+    run.launches[key, cluster] += 1
     return out[0:1], out[1:2]
 
 
+def _cluster(cluster: int) -> None:
+    if cluster not in CLUSTERS:
+        raise ValueError(f"cluster of {cluster} blocks: want one of "
+                         f"{CLUSTERS}")
+
+
 def run(body: str, x: torch.Tensor, n_chains: int, reps: int,
-        shared: bool = False) -> tuple:
-    """The kernel of :func:`run_plain` (counted in ``run.launches[body]``,
-    or ``[body + "_shared"]``); ``shared``: the leaf's two chains pass one
-    set of barriers together (the same result).  On a CPU tensor the
-    plain twin."""
+        shared: bool = False, cluster: int = 1) -> tuple:
+    """The kernel of :func:`run_plain` as a cluster of ``cluster`` blocks
+    (counted in ``run.launches[body, cluster]``, or ``[body + "_shared",
+    cluster]``); ``shared``: the leaf's two chains pass one set of
+    barriers together (the same result).  On a CPU tensor the plain
+    twin."""
     if shared and (body != "leaf" or n_chains != 2):
         raise ValueError("shared barriers are the leaf's, at two chains")
+    _cluster(cluster)
     if not _common.on_card(x, "probe_interleave"):
         return run_plain(body, x, n_chains, reps)
     return _launch(body + "_shared" * shared, BODIES.index(body), n_chains,
-                   128, shared, x, reps)
+                   128, shared, x, reps, cluster)
 
 
 def run_width(x: torch.Tensor, width: int, reps: int, n_chains: int = 1,
-              shared: bool = False) -> tuple:
-    """The kernel of :func:`run_width_plain`: one chain at width 128 or
-    256 (counted in ``run.launches["width"]``), or 1 or 2 chains at
-    :data:`NARROW` (``["narrow"]``, ``["narrow_shared"]`` with
-    ``shared``: both chains' row sums before one barrier).  On a CPU
-    tensor the plain twin."""
+              shared: bool = False, cluster: int = 1) -> tuple:
+    """The kernel of :func:`run_width_plain` as a cluster of ``cluster``
+    blocks: one chain at width 128 or 256 (counted in
+    ``run.launches["width", cluster]``), or 1 or 2 chains at
+    :data:`NARROW` (``["narrow", cluster]``, ``["narrow_shared",
+    cluster]`` with ``shared``: both chains' row sums before one
+    barrier).  On a CPU tensor the plain twin."""
     if not ((width in (128, 256) and n_chains == 1 and not shared)
             or (width == NARROW and n_chains in (1, 2)
                 and (n_chains == 2 or not shared))):
         raise ValueError(f"no width kernel for width {width}, {n_chains} "
                          f"chain(s), shared={shared}")
+    _cluster(cluster)
     if not _common.on_card(x, "probe_interleave"):
         return run_width_plain(x, width, reps, n_chains)
     key = ("width" if width != NARROW else "narrow") + "_shared" * shared
-    return _launch(key, 2, n_chains, width, shared, x, reps)
+    return _launch(key, 2, n_chains, width, shared, x, reps, cluster)
 
 
 run.launches = collections.Counter()
@@ -234,25 +253,31 @@ def _held(name: str, got: tuple, want: tuple) -> float:
     return max(d_out, d_pm)
 
 
-def check(device="cuda", reps: int = CHECK_REPS) -> float:
-    """Every kernel instance against its twin at ``reps`` iterations
-    (out at RTOL, ATOL; pm at PM_RTOL); raises on a mismatch, returns
-    the largest absolute difference."""
+def check(device="cuda", reps: int = CHECK_REPS,
+          clusters=CLUSTERS) -> float:
+    """Every kernel instance at every cluster size of ``clusters`` against
+    its twin at ``reps`` iterations (out at RTOL, ATOL; pm at PM_RTOL);
+    raises on a mismatch, returns the largest absolute difference."""
     x = inputs(1).to(device)
-    cases = [(f"{b} x{n}", lambda b=b, n=n: run(b, x, n, reps),
+    xw = inputs(1, 256, 1).to(device)
+    xn = inputs(1, NARROW).to(device)
+    cases = [(f"{b} x{n}", lambda c, b=b, n=n: run(b, x, n, reps, cluster=c),
               lambda b=b, n=n: run_plain(b, x, n, reps))
              for b in BODIES for n in (1, 2)]
-    cases.append(("leaf x2 shared", lambda: run("leaf", x, 2, reps, True),
+    cases.append(("leaf x2 shared", lambda c: run("leaf", x, 2, reps, True, c),
                   lambda: run_plain("leaf", x, 2, reps)))
-    xw = inputs(1, 256, 1).to(device)
-    cases += [(f"width {w}", lambda w=w: run_width(xw, w, reps),
+    cases += [(f"width {w}", lambda c, w=w: run_width(xw, w, reps, cluster=c),
                lambda w=w: run_width_plain(xw, w, reps)) for w in (128, 256)]
-    xn = inputs(1, NARROW).to(device)
     cases += [(f"narrow x{n}{' shared' * s}",
-               lambda n=n, s=s: run_width(xn, NARROW, reps, n, s),
+               lambda c, n=n, s=s: run_width(xn, NARROW, reps, n, s, c),
                lambda n=n: run_width_plain(xn, NARROW, reps, n))
               for n, s in ((1, False), (2, False), (2, True))]
-    return max(_held(name, kernel(), twin()) for name, kernel, twin in cases)
+    err = 0.0
+    for name, kernel, twin in cases:
+        want = twin()
+        for c in clusters:
+            err = max(err, _held(f"{name} at cluster {c}", kernel(c), want))
+    return err
 
 
 def time_fn(fn, n: int = 5) -> float:
@@ -292,19 +317,25 @@ def report(name: str, t: dict) -> str:
     return line
 
 
-def timings(reps: int, width_reps: int, device="cuda") -> dict:
-    """Every timing of the probe on the card: {"chain", "leaf", "narrow":
-    the ``four_ways`` dict (chain without "shared"), "width": {128: ms,
-    256: ms}}."""
+def timings(reps: int, width_reps: int, device="cuda",
+            cluster: int = 1) -> dict:
+    """Every timing of the probe on the card at one cluster size:
+    {"chain", "leaf", "narrow": the ``four_ways`` dict (chain without
+    "shared"), "width": {128: ms, 256: ms}}."""
     x = inputs(1).to(device)
     xw = inputs(1, 256, 1).to(device)
     xn = inputs(1, NARROW).to(device)
-    return {"chain": four_ways(lambda n, r, s: run("chain", x, n, r), reps,
-                               shared=False),
-            "leaf": four_ways(lambda n, r, s: run("leaf", x, n, r, s), reps),
+    c = cluster
+    return {"chain": four_ways(lambda n, r, s: run("chain", x, n, r,
+                                                   cluster=c),
+                               reps, shared=False),
+            "leaf": four_ways(lambda n, r, s: run("leaf", x, n, r, s, c),
+                              reps),
             "narrow": four_ways(
-                lambda n, r, s: run_width(xn, NARROW, r, n, s), width_reps),
-            "width": {w: time_fn(lambda w=w: run_width(xw, w, width_reps))
+                lambda n, r, s: run_width(xn, NARROW, r, n, s, c),
+                width_reps),
+            "width": {w: time_fn(lambda w=w: run_width(xw, w, width_reps,
+                                                       cluster=c))
                       for w in (128, 256)}}
 
 
@@ -313,16 +344,20 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("probe_interleave runs on the card: no CUDA device")
     check()
-    if len(argv) > 1 and argv[1] == "width":
-        reps = int(argv[2]) if len(argv) > 2 else 50000
-        t = timings(2, reps)
-        for w in (128, 256):
-            print(f"width {w}: {t['width'][w]:8.2f} ms ({reps} reps)")
-        print(report(f"narrow (width {NARROW})", t["narrow"]))
-        return 0
-    t = timings(int(argv[1]) if len(argv) > 1 else 2000, 2)
-    print(report("chain", t["chain"]))
-    print(report("leaf", t["leaf"]))
+    wide = len(argv) > 1 and argv[1] == "width"
+    reps = int(argv[2 if wide else 1]) if len(argv) > 1 + wide else (
+        50000 if wide else 2000)
+    for c in CLUSTERS:
+        print(f"-- cluster of {c} block(s)")
+        if wide:
+            t = timings(2, reps, cluster=c)
+            for w in (128, 256):
+                print(f"width {w}: {t['width'][w]:8.2f} ms ({reps} reps)")
+            print(report(f"narrow (width {NARROW})", t["narrow"]))
+        else:
+            t = timings(reps, 2, cluster=c)
+            print(report("chain", t["chain"]))
+            print(report("leaf", t["leaf"]))
     return 0
 
 

@@ -3,13 +3,15 @@ per iteration, at P = 128 and P = 256 rows.
 
 Counterpart of ``bench/probe_p256.py`` (its bodies nest in ``main``,
 probe_p256.py:68-109): six bodies, each looped R times inside one launch
-of csrc/probe_p256.cu over a [P, 512] f32 state (one thread block), and
-each with a plain PyTorch twin (:func:`body`) that runs the same
-iterations as separate tensor ops.  The probe prints microseconds per
-iteration and the P = 256 / 128 ratio of each body.
+of csrc/probe_p256.cu over a [P, 512] f32 state held on chip across a
+thread-block cluster of n blocks (:data:`CLUSTERS`), and each with a
+plain PyTorch twin (:func:`body`) that runs the same iterations as
+separate tensor ops.  The probe prints microseconds per iteration at
+each cluster size and the P = 256 / 128 ratio of each body.
 
 Run: ``python3 -m modem_tpu_torch.probes.p256`` (on the card).  It first
-holds the kernel to its twin at R = 4 (a failure raises), then times.
+holds the kernel to its twin at R = 4 at every cluster size (a failure
+raises), then times.
 """
 
 from __future__ import annotations
@@ -31,10 +33,15 @@ BODIES = ("madd", "min_reduce", "transpose", "one_hot", "eye_sum",
 LABELS = ("elementwise madd [P,512]", "min-reduce axis1 + bcast",
           "(P,1)->(1,P) transpose", "one-hot [P,P] matmul",
           "[P,P] matmul + eye diag-sum", "[F,2P] masked min (selector)")
-# kernel against twin at R = 4, relative: the eye-sum's [P, P] product
-# and the selector's sum of the F minima are summed in another order;
-# every other body is exact (min, exact adds, a one-hot product, and the
-# madd rounded as two operations in both)
+# the cluster sizes (blocks, one an SM) the kernel runs at: the first
+# is the smallest that holds the state in registers (256 KB of them an
+# SM: 128 KB a block), the others double it up to 16, the largest
+# cluster the card takes
+CLUSTERS = {128: (2, 4, 8, 16), 256: (4, 8, 16)}
+# kernel against twin at R = 4, relative: the eye-sum's diagonal and the
+# selector's sum of the F minima are summed in another order; every
+# other body is exact (min, exact adds, a row broadcast, and the madd
+# rounded as two operations in both)
 RTOL = {"madd": 0.0, "min_reduce": 0.0, "transpose": 0.0, "one_hot": 0.0,
         "eye_sum": 1e-4, "selector": 1e-6}
 CHECK_R = 4
@@ -71,7 +78,7 @@ def body(name: str, v: torch.Tensor, i: int) -> torch.Tensor:
 
 def library():
     """csrc/probe_p256.cu, built at first use and loaded."""
-    return _common.library("probe_p256", ("i", "p", "p", "p", "i", "i", "p"))
+    return _common.library("probe_p256", ("i", "p", "p", "i", "i", "i", "p"))
 
 
 def run_plain(name: str, x: torch.Tensor, reps: int) -> torch.Tensor:
@@ -81,25 +88,30 @@ def run_plain(name: str, x: torch.Tensor, reps: int) -> torch.Tensor:
     return x
 
 
-def run(name: str, x: torch.Tensor, reps: int) -> torch.Tensor:
-    """The kernel: ``reps`` iterations of body ``name`` on a copy of x
-    [P, 512] f32, one launch on the card (counted in
-    ``run.launches[name]``); on a CPU tensor the plain twin."""
+def run(name: str, x: torch.Tensor, reps: int,
+        cluster: int | None = None) -> torch.Tensor:
+    """The kernel: ``reps`` iterations of body ``name`` on x [P, 512] f32
+    (not written) into a new tensor, one launch on the card as a cluster
+    of ``cluster`` blocks (one of ``CLUSTERS[P]``, default the smallest;
+    counted in ``run.launches[name, P, cluster]``); on a CPU tensor the
+    plain twin."""
     P = x.shape[0]
     if x.shape != (P, COLS) or P not in PS:
         raise ValueError(f"state of shape {tuple(x.shape)}: want [128 or "
                          f"256, {COLS}]")
+    cluster = CLUSTERS[P][0] if cluster is None else cluster
+    if cluster not in CLUSTERS[P]:
+        raise ValueError(f"cluster of {cluster} blocks at P={P}: want one "
+                         f"of {CLUSTERS[P]}")
     if not _common.on_card(x, "probe_p256"):
         return run_plain(name, x, reps)
     lib = library()
-    out = x.clone()
-    work = torch.empty_like(x)
-    scratch = torch.empty(P, P, dtype=torch.float32, device=x.device)
-    rc = lib.probe_p256_launch(BODIES.index(name), out.data_ptr(),
-                               work.data_ptr(), scratch.data_ptr(), P, reps,
+    out = torch.empty_like(x)
+    rc = lib.probe_p256_launch(BODIES.index(name), x.data_ptr(),
+                               out.data_ptr(), P, cluster, reps,
                                torch.cuda.current_stream(x.device).cuda_stream)
     _common.check_rc(lib, "probe_p256", rc)
-    run.launches[name] += 1
+    run.launches[name, P, cluster] += 1
     return out
 
 
@@ -114,69 +126,94 @@ def inputs(P: int, device) -> torch.Tensor:
 
 def bound(name: str, P: int, reps: int) -> dict:
     """The roofline bound of one launch: the state read once and written
-    once, and the operations of ``reps`` iterations counted from the
-    body (a multiply-add 2, a compare, select, min or add 1)."""
+    once, and the operations that ``reps`` iterations of the body need
+    (a multiply or an add 1, a compare or min 1): madd 2 an element,
+    min-reduce the row's minimum and the add, transpose the add, one-hot
+    none (a row copied to every row: bytes alone bound it), eye-sum the
+    diagonal of the [P, P] product (2 P^2), the 3 P of its mask and sum
+    and the add, selector the 2 P minima of the frames, their F sums and
+    the add."""
     e = P * COLS
     fh = P // 8
     per_iter = {"madd": 2 * e,
                 "min_reduce": 2 * e,
                 "transpose": e,
-                "one_hot": P * P + 2 * P * P * COLS,
-                "eye_sum": 2 * P ** 3 + 3 * P * P + e,
-                "selector": 3 * fh * 2 * P + fh + e}[name]
+                "one_hot": 0,
+                "eye_sum": 2 * P * P + 3 * P + e,
+                "selector": 2 * P + fh + e}[name]
     return roofline(2 * 4 * e, reps * per_iter)
 
 
-def check(device="cuda", reps: int = CHECK_R) -> dict:
-    """Each body's kernel against its twin at ``reps`` iterations, P =
-    128 and 256, at :data:`RTOL`; raises on a mismatch.  Returns the
-    largest absolute difference per body."""
+def check(device="cuda", reps: int = CHECK_R, clusters=None) -> dict:
+    """Each body's kernel against its twin at ``reps`` iterations at
+    :data:`RTOL`, for each P and cluster size of ``clusters`` ({P:
+    cluster sizes}, default :data:`CLUSTERS`: P = 128 and 256 at every
+    size); raises on a mismatch.  Returns the largest absolute
+    difference per body."""
+    clusters = CLUSTERS if clusters is None else clusters
     err = {}
     for name in BODIES:
-        for P in PS:
+        for P, sizes in clusters.items():
             x = inputs(P, device)
-            got = run(name, x, reps)
             want = run_plain(name, x, reps)
-            if not torch.allclose(got, want, rtol=RTOL[name], atol=0.0):
-                raise RuntimeError(
-                    f"probe_p256 {name} at P={P}: kernel differs from its "
-                    f"plain twin by {float((got - want).abs().max())}")
-            err[name] = max(err.get(name, 0.0),
-                            float((got - want).abs().max()))
+            for n in sizes:
+                got = run(name, x, reps, n)
+                if not torch.allclose(got, want, rtol=RTOL[name], atol=0.0):
+                    raise RuntimeError(
+                        f"probe_p256 {name} at P={P}, cluster {n}: kernel "
+                        f"differs from its plain twin by "
+                        f"{float((got - want).abs().max())}")
+                err[name] = max(err.get(name, 0.0),
+                                float((got - want).abs().max()))
     return err
 
 
-def timings(device="cuda", reps: int = R) -> dict:
-    """{(body, P): (kernel ms a launch of ``reps`` iterations, plain ms of
-    the same iterations)}: a warm-up launch, then the best of two timed
-    ones on scaled inputs (as the probe's best of 4); the twin once."""
-    out = {}
+def timings(device="cuda", reps: int = R) -> tuple:
+    """({(body, P, cluster): kernel ms a launch of ``reps`` iterations},
+    {(body, P): plain ms of the same iterations}): at each cluster size a
+    warm-up launch, then the best of two timed ones on scaled inputs (as
+    the probe's best of 4); the twin once."""
+    kernel, plain = {}, {}
     for name in BODIES:
         for P in PS:
             x = inputs(P, device)
-            run(name, x, 2)
-            best = min(cuda_ms(lambda: run(name, x * (1 + 0.003 * k), reps))
-                       for k in range(2))
-            plain = cuda_ms(lambda: run_plain(name, x, reps))
-            out[name, P] = (best, plain)
-    return out
+            for n in CLUSTERS[P]:
+                run(name, x, 2, n)
+                kernel[name, P, n] = min(
+                    cuda_ms(lambda: run(name, x * (1 + 0.003 * k), reps, n))
+                    for k in range(2))
+            plain[name, P] = cuda_ms(lambda: run_plain(name, x, reps))
+    return kernel, plain
+
+
+def report(kernel: dict, plain: dict, reps: int = R) -> list:
+    """Lines of µs an iteration a body, P and cluster size, the twin's,
+    and the P = 256 / 128 ratio at each cluster size both run at."""
+    lines = []
+    for k, label in enumerate(LABELS):
+        name = BODIES[k]
+        for P in PS:
+            us = ", ".join(f"{n}: {kernel[name, P, n] * 1e3 / reps:.3f}"
+                           for n in CLUSTERS[P])
+            lines.append(f"{label:34s} P={P:3d}: us/iter by cluster size "
+                         f"{{{us}}} (plain twin "
+                         f"{plain[name, P] * 1e3 / reps:.2f})")
+        ratios = ", ".join(
+            f"{n}: {kernel[name, 256, n] / kernel[name, 128, n]:.2f}x"
+            for n in CLUSTERS[256])
+        lines.append(f"  ratio P=256 / P=128 by cluster size {{{ratios}}}; "
+                     f"at each P's smallest "
+                     f"{kernel[name, 256, 4] / kernel[name, 128, 2]:.2f}x")
+    return lines
 
 
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("probe_p256 runs on the card: no CUDA device")
     check()
-    print(f"kernel equals its plain twin at R={CHECK_R} on every body "
-          "(tolerances in RTOL)")
-    res = timings()
-    for k, label in enumerate(LABELS):
-        for P in PS:
-            ms, plain = res[BODIES[k], P]
-            print(f"{label:34s} P={P:3d}: {ms * 1e3 / R:8.2f} us/iter "
-                  f"(plain twin {plain * 1e3 / R:8.2f} us/iter)")
-    print("\nratios P=256 / P=128 (2.0 = linear in rows):")
-    for name in BODIES:
-        print(f"  {name:16s}: {res[name, 256][0] / res[name, 128][0]:5.2f}x")
+    print(f"kernel equals its plain twin at R={CHECK_R} on every body and "
+          "cluster size (tolerances in RTOL)")
+    print("\n".join(report(*timings())))
     return 0
 
 

@@ -38,7 +38,7 @@ from modem_tpu_torch.numerology import make_config, toy_config
 from modem_tpu_torch.pipeline import (AdaptivePipeline, BatchPipeline,
                                       decode_recording_auto)
 from modem_tpu_torch.sync import Synchronizer
-from modem_tpu_torch.probes import interleave, p256, rank3
+from modem_tpu_torch.probes import _common, interleave, p256, rank3
 
 # (n, k, order, sigma) as tests/test_torch_sc_decode.py and
 # tests/test_torch_scl_decode.py
@@ -440,8 +440,32 @@ def test_sc_four_blocks_per_sm_at_wire_size(cuda_device):
 @pytest.mark.cuda
 def test_probe_p256_matches_twin(cuda_device):
     """Probe D: each body's kernel against its plain twin at R = 4, P =
-    128 and 256, at p256.RTOL."""
+    128 and 256, at every cluster size of p256.CLUSTERS, at p256.RTOL."""
     p256.check(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,cluster", [(P, n) for P in p256.PS
+                                       for n in p256.CLUSTERS[P]])
+def test_probe_p256_cluster_matches_twin(cuda_device, P, cluster):
+    """Probe D as one cluster of ``cluster`` blocks: every body against
+    its twin at R = 4 (p256.RTOL), the one-hot body exactly at R = 2P + 3
+    (its pushed row comes from every block in turn), and a cluster the
+    kernel does not take refused by the C interface (no launch)."""
+    p256.check(cuda_device, clusters={P: (cluster,)})
+    x = p256.inputs(P, cuda_device)
+    reps = 2 * P + 3
+    assert torch.equal(p256.run("one_hot", x, reps, cluster),
+                       p256.run_plain("one_hot", x, reps))
+    lib = p256.library()
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for bad in (1, 3, 32):
+        rc = lib.probe_p256_launch(0, x.data_ptr(), out.data_ptr(), P, bad, 1,
+                                   stream)
+        assert rc != 0, bad
+        with pytest.raises(RuntimeError):
+            _common.check_rc(lib, "probe_p256", rc)
 
 
 @pytest.mark.cuda
@@ -459,9 +483,27 @@ def test_probe_interleave_matches_twin(cuda_device):
     """Probe F: chain and leaf, one and two chains (the leaf's also
     through shared barriers), the width probe at 128 and 256 and the
     narrow width-4 body at one and two chains, kernel against twin at 8
-    iterations: the output within rtol 1e-5, atol 1e-3, and pm on its
-    own within rtol 1e-5."""
+    iterations, at every cluster size of interleave.CLUSTERS: the output
+    within rtol 1e-5, atol 1e-3, and pm on its own within rtol 1e-5."""
     interleave.check(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", interleave.CLUSTERS)
+def test_probe_interleave_cluster_matches_twin(cuda_device, cluster):
+    """Probe F with its rows over ``cluster`` blocks: every kernel against
+    its twin at 8 and at 40 iterations (the leaf's gathered rows from
+    every block), and a cluster size the kernel does not take refused by
+    the C interface."""
+    for reps in (interleave.CHECK_REPS, 40):
+        interleave.check(cuda_device, reps, (cluster,))
+    lib = interleave.library()
+    x = interleave.inputs(1).to(cuda_device)
+    out = torch.empty(2, interleave.P, device=cuda_device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.probe_interleave_launch(0, 1, 128, 0, x.data_ptr(), 128, 1,
+                                     out.data_ptr(), 3, stream)
+    assert rc != 0
 
 
 # -- kernels B and C: their tiers of state -------------------------------------

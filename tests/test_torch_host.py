@@ -3,7 +3,11 @@ numerology, bits (CRC, scrambler, MLS, base37, MSB-first packing), the
 frozen-set design, the BCH encoder and codeword check, the decoder
 schedule, the polar transforms and their numpy twins, the PSK map's
 numpy twin, and the exhaustive OSD oracle (``fec/osd_np``), which the
-port's batched ``fec.osd.osd_decode`` equals in turn."""
+port's batched ``fec.osd.osd_decode`` equals in turn; and the
+signatures JAX callers use (``osd_decode(order=)``,
+``encode_systematic(mesg_bits=)``)."""
+
+import inspect
 
 import numpy as np
 import pytest
@@ -348,3 +352,34 @@ def test_osd_np_matches_jax(case):
     bd, bu = osd.osd_decode(torch.from_numpy(soft[None]).to(torch.int8))
     assert np.array_equal(bd[0].numpy(), data) and bool(bu[0]) == unique
     assert unique == (case != "erased")
+
+
+# -- signatures the JAX package's callers use ----------------------------------
+
+def test_osd_decode_signature_matches_jax():
+    """osd_decode takes the JAX one's parameters by the same names: order
+    4 (the reference's search) decodes as the default does, and another
+    order raises ValueError (JAX asserts it)."""
+    from modem_tpu.fec import osd as josd
+    assert list(inspect.signature(osd.osd_decode).parameters) == list(
+        inspect.signature(josd.osd_decode).parameters)
+    soft = torch.from_numpy(_osd_soft("edge")[None]).to(torch.int8)
+    got = osd.osd_decode(soft, genmat=bch.generator_matrix(), order=4)
+    want = osd.osd_decode(soft)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for order in (3, 5):
+        with pytest.raises(ValueError):
+            osd.osd_decode(soft, order=order)
+
+
+def test_encode_systematic_takes_mesg_bits():
+    """PolarCode.encode_systematic(mesg_bits=...) as JAX's names it,
+    equal to the JAX encoder's codeword."""
+    a, b = polar.PolarCode(224, 144, 8), jpolar.PolarCode(224, 144, 8)
+    assert list(inspect.signature(a.encode_systematic).parameters) == list(
+        inspect.signature(b.encode_systematic).parameters) == ["mesg_bits"]
+    rng = np.random.default_rng(11)
+    m = rng.integers(0, 2, (2, b.mesg_bits), dtype=np.uint8)
+    m[:, b.k:] = 0
+    got = a.encode_systematic(mesg_bits=torch.from_numpy(m)).numpy()
+    assert np.array_equal(got, np.asarray(b.encode_systematic(mesg_bits=m)))

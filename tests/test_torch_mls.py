@@ -192,7 +192,15 @@ def test_auto_header_batch_matches_jax(decoders):
 
 def test_galois_receiver_rejects_fibonacci():
     """A galois-only receiver does not decode the fibonacci recording,
-    and says what the JAX one says."""
+    and says what the JAX one says: the decoder's status and oper_mode,
+    the scan's events before the fine stage (the edge walk's (edge,
+    n_max) and assemble_events' p0 exact, the phase and frac_cfo within
+    1e-6, as test_torch_decoder.py holds them: JAX sums in f32, the port
+    in f64), each fed as its package's scan feeds it, and each
+    candidate's ok.  The fine-stage p0 of a candidate that fails the gate
+    is not compared: it is the event minus the argmax of a correlation
+    with no peak (peak ratio ~1, gate 4), which the FFT's rounding
+    decides, and the reference holds p0 exact only for frames."""
     x = golden("fibonacci")
     got = Decoder(8000, device="cpu").decode(x, channels=2)
     want = JaxDecoder(8000).decode(x, channels=2)
@@ -202,5 +210,16 @@ def test_galois_receiver_rejects_fibonacci():
                                             freq_off=0), "cpu")
     ref = JaxSynchronizer(dataclasses.replace(jax_make_config(8000, 6),
                                               freq_off=0))
-    assert [(c.p0, c.ok) for c in port.scan(x)] == \
-        [(c.p0, c.ok) for c in ref.scan(split(x))]
+    raw = port._events_device(port.recording(x), port.CHUNK_SMALL, 4 * 8)
+    raw_ref, _ = ref._events_device(split(x), ref.CHUNK_SMALL, 4 * 8)
+    assert raw and [e[:2] for e in raw] == [e[:2] for e in raw_ref]
+    assert np.allclose([e[2] for e in raw], [e[2] for e in raw_ref],
+                       atol=1e-6)
+    events, events_ref = port.assemble_events(raw), ref.assemble_events(
+        raw_ref)
+    assert [e[0] for e in events] == [e[0] for e in events_ref]
+    assert np.allclose([e[1] for e in events], [e[1] for e in events_ref],
+                       atol=1e-6)
+    cands, want_cands = port.scan(x), ref.scan(split(x))
+    assert [c.ok for c in cands] == [c.ok for c in want_cands]
+    assert not any(c.ok for c in cands)

@@ -5,7 +5,8 @@ the CPU, against the JAX probes of bench/.
   they are restated here in jnp (probe_p256.py:69-108) and run through
   ``pl.pallas_call(..., interpret=True)`` in a fori_loop of R = 4, as
   ``timeit`` runs them; the twin must agree at p256.RTOL, except the
-  madd, held to rtol 1e-6 here (XLA may contract its multiply-add).
+  madd, held to rtol 1e-6 here (XLA may contract its multiply-add); the
+  bound's counts and the cluster sizes the kernel runs at.
 - E (probes.rank3): bench/probe_rank3.py nests its kernels in ``main``;
   restated here (probe_rank3.py:52-129) and run through pallas_call in
   interpret mode, the twin must equal them (atol 1e-5 for the slot
@@ -114,14 +115,36 @@ def test_p256_twin_matches_probe(name):
 
 
 def test_p256_bound_counts_the_bodies():
-    """The bound reads and writes the state once and counts the products
-    in full (2 P^2 x 512 for the one-hot, 2 P^3 for the eye-sum)."""
+    """The bound reads and writes the state once and counts what each
+    body needs: the one-hot no arithmetic (a row copied: bytes alone
+    bound it), the eye-sum the diagonal of its product (2 P^2 + 3 P + e
+    an iteration, not 2 P^3), the selector the 2 P frame minima, the F
+    sums and the add."""
     b = p256.bound("one_hot", 128, 1)
     assert b["bytes"] == 2 * 4 * 128 * 512
-    assert b["operations"] == 128 * 128 + 2 * 128 * 128 * 512
+    assert b["operations"] == 0 and b["bound_by"] == "bytes"
     assert p256.bound("eye_sum", 256, 10)["operations"] == 10 * (
-        2 * 256 ** 3 + 3 * 256 * 256 + 256 * 512)
+        2 * 256 ** 2 + 3 * 256 + 256 * 512)
+    assert p256.bound("selector", 128, 2)["operations"] == 2 * (
+        2 * 128 + 128 // 8 + 128 * 512)
     assert p256.bound("madd", 128, p256.R)["bound_by"] == "operations"
+
+
+@pytest.mark.parametrize("P", p256.PS)
+def test_p256_clusters_hold_the_state_on_chip(P):
+    """Each P's smallest cluster is the least number of blocks whose
+    share of the [P, 512] f32 state fits half an SM's 256 KB of
+    registers (the rest for the kernel's other values); the others
+    double it up to 16 blocks, the card's largest cluster; every block
+    keeps whole frames of 8 rows, and a warp one to four rows."""
+    sizes = p256.CLUSTERS[P]
+    state = P * p256.COLS * 4
+    assert state / sizes[0] <= 128 * 1024 < state / (sizes[0] // 2)
+    assert sizes == tuple(sizes[0] << k for k in range(len(sizes)))
+    assert sizes[-1] == 16
+    for n in sizes:
+        rows = P // n
+        assert rows % 8 == 0 and 1 <= rows / min(16, rows) <= 4
 
 
 # -- E: bench/probe_rank3.py ---------------------------------------------------
@@ -337,7 +360,24 @@ def test_cpu_tensors_take_the_twins():
                        interleave.run_width_plain(xi, interleave.NARROW, 2,
                                                   2))):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for n in p256.CLUSTERS[128]:
+        assert torch.equal(p256.run("one_hot", x, 3, n),
+                           p256.run_plain("one_hot", x, 3))
+    for c in interleave.CLUSTERS:
+        assert all(torch.equal(g, w) for g, w in zip(
+            interleave.run("leaf", xi, 1, 2, cluster=c),
+            interleave.run_plain("leaf", xi, 1, 2)))
     assert before == [dict(c) for c in counts]
+    for bad in (1, 3, 32):
+        with pytest.raises(ValueError):
+            p256.run("madd", x, 1, bad)
+    with pytest.raises(ValueError):
+        p256.run("madd", p256.inputs(256, "cpu"), 1, 2)
+    for bad in (0, 3, 16):
+        with pytest.raises(ValueError):
+            interleave.run("chain", xi, 1, 2, cluster=bad)
+        with pytest.raises(ValueError):
+            interleave.run_width(xi, 128, 2, cluster=bad)
     with pytest.raises(ValueError):
         interleave.run("chain", xi, 2, 2, shared=True)
     with pytest.raises(ValueError):

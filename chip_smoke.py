@@ -87,12 +87,22 @@ Phases:
      output and its pm each at their own), D and F at every cluster size
      they are timed at (D's [P, 512] state on chip across a thread-block
      cluster of 2, 4, 8, 16 blocks at P = 128 and 4, 8, 16 at P = 256;
-     F's 128 rows over 1, 2, 4, 8 blocks), then the timings at the
-     original probes' R: microseconds an iteration at each cluster size
-     with the bound and the share, D's P = 256 / 128 ratios, F's verdicts
-     (chain, leaf and the narrow width-4 body: single, dual, dual through
-     shared barriers, double) at each cluster size; the build (phase 2)
-     fails if ptxas gives a kernel of D or F a stack frame or spills;
+     F's 128 rows over 1, 2, 4, 8 blocks), E's five kinds at R = 1, 4
+     and 43 on the probe's tile and a tile of ties and signed zeros (and
+     numpy at R = 1, where the frame rank's 16 frames, one a block, show
+     its grid of 16 blocks ran); then the timings at
+     the original probes' R: microseconds an iteration at each cluster
+     size with the bound and the share, D's P = 256 / 128 ratios, F's
+     verdicts (chain, leaf and the narrow width-4 body: single, dual, dual
+     through shared barriers, double) at each cluster size; E's µs an
+     iteration at R = 20,000 and its one-pass launch (R = 1) timed on the
+     device from a CUDA graph of 1,000 launches, beside torch.roll's
+     (the roll's library call) and the host-paced launch; every twin
+     and its kernel over the same 2,000 iterations (the kernels line's
+     ms and plain_ms; the long launches under "timing"); each probe's
+     seconds;
+     the build (phase 2) fails if ptxas gives a probe kernel a stack
+     frame or spills;
  13. decode-all (decode_recording_auto, each drive a warm-up call then a
      timed one with the counts at 0 just before): an hour of mono int16
      at 8 kHz (28,800,000 samples, 12 mode-6 frames at seeded offsets,
@@ -1498,6 +1508,8 @@ def main() -> int:
     from modem_tpu_torch.kernels.scl_decode import make_decoder, variant_name
     from modem_tpu_torch.pipeline import AdaptivePipeline, BatchPipeline
     from modem_tpu_torch.probes import interleave, p256, rank3
+    from modem_tpu_torch.probes import _common
+    from modem_tpu_torch.probes._common import PLAIN_REPS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1532,7 +1544,7 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}:", line.strip())
-        if name in ("probe_p256", "probe_interleave"):
+        if name.startswith("probe_"):
             frames = stack_frames(log.read_text())
             off_chip = {k: v for k, v in frames.items() if any(v)}
             check(frames and not off_chip,
@@ -2234,12 +2246,16 @@ def main() -> int:
     # ---- 12. probes D, E, F ----------------------------------------------
     # each held to its plain twin at small R first (D and F at every
     # cluster size), then its timing run is the drive (counts at 0 just
-    # before, read just after)
-    t0 = time.perf_counter()
+    # before, read just after).  In each probe entry of the kernels line,
+    # ms, plain_ms, bound_ms and library_ms are of one call of ``reps`` =
+    # PLAIN_REPS iterations (kernel and twin by _common.pair_ms, the
+    # kernel at its smallest cluster), and the times under "timing" of
+    # one launch of its ``reps`` iterations, where us_per_iter comes from
+    t0 = t_probe = time.perf_counter()
     d_err = p256.check(dev)
-    (d_ms, d_plain), _ = drive(lambda: p256.timings(dev),
-                               lambda: sum(p256.run.launches.values()),
-                               "probe D")
+    (d_ms, d_pair), _ = drive(lambda: p256.timings(dev),
+                              lambda: sum(p256.run.launches.values()),
+                              "probe D")
     d_launches = dict(p256.run.launches)
     for k, body in enumerate(p256.BODIES):
         us = {}
@@ -2255,8 +2271,9 @@ def main() -> int:
                   + f"; bound {bound_us:.6f} us/iter, share "
                   + ", ".join(f"{bound_us / us[P, n]:.2%}"
                               for n in p256.CLUSTERS[P])
-                  + f" (plain twin {d_plain[body, P] * 1e3 / p256.R:.2f}"
-                  " us/iter)")
+                  + f" (over {PLAIN_REPS} iterations plain twin "
+                  f"{d_pair[body, P][1]:.3f} ms, kernel "
+                  f"{d_pair[body, P][0]:.4f} ms)")
         n128, n256 = p256.CLUSTERS[128][0], p256.CLUSTERS[256][0]
         ratios = {n: d_ms[body, 256, n] / d_ms[body, 128, n]
                   for n in p256.CLUSTERS[256]}
@@ -2264,49 +2281,73 @@ def main() -> int:
               + ", ".join(f"{n}: {r:.2f}x" for n, r in ratios.items())
               + f"; at each P's smallest cluster "
               f"{d_ms[body, 256, n256] / d_ms[body, 128, n128]:.2f}x")
+        (k128, p128), (k256, p256_ms) = d_pair[body, 128], d_pair[body, 256]
         options.append({
             "name": f"probe_p256[{body}]", "route": "cuda",
             "source": "modem_tpu_torch/csrc/probe_p256.cu",
             "replaces": "bench/probe_p256.py:45",
             "launches": sum(v for (b, _, _), v in d_launches.items()
                             if b == body),
-            "max_abs_err": d_err[body], "ms": d_ms[body, 128, n128],
-            "plain_ms": d_plain[body, 128],
-            **p256.bound(body, 128, p256.R), "library_ms": None,
-            "shape": [128, p256.COLS], "reps": p256.R, "cluster": n128,
+            "max_abs_err": d_err[body], "reps": PLAIN_REPS, "ms": k128,
+            "plain_ms": p128, "plain_us_per_iter": p128 * 1e3 / PLAIN_REPS,
+            **p256.bound(body, 128, PLAIN_REPS), "library_ms": None,
+            "shape": [128, p256.COLS], "cluster": n128,
+            "ms_256": k256, "plain_ms_256": p256_ms, "cluster_256": n256,
+            "bound_ms_256": p256.bound(body, 256, PLAIN_REPS)["bound_ms"],
             "us_per_iter": us[128, n128],
-            "us_per_iter_by_cluster": {
-                str(P): {str(n): us[P, n] for n in p256.CLUSTERS[P]}
-                for P in p256.PS},
-            "ms_256": d_ms[body, 256, n256], "cluster_256": n256,
-            "plain_ms_256": d_plain[body, 256],
-            "bound_ms_256": p256.bound(body, 256, p256.R)["bound_ms"],
-            "ratio_256_128": d_ms[body, 256, n256] / d_ms[body, 128, n128],
-            "ratio_256_128_by_cluster": {str(n): r
-                                         for n, r in ratios.items()}})
-    x_e = rank3.inputs()
-    xt_e = torch.from_numpy(x_e).to(dev)
-    e_err = {}
-    for kind in rank3.KINDS:
-        e_err[kind] = rank3.check_one(kind, rank3.run(kind, xt_e), x_e)
-        rank3.check_one(kind, rank3.plain(kind, xt_e), x_e)
-    e_ms, _ = drive(lambda: {kind: cuda_ms(lambda: rank3.run(kind, xt_e), 100)
-                             for kind in rank3.KINDS},
-                    lambda: sum(rank3.run.launches.values()), "probe E")
+            "timing": {
+                "reps": p256.R, "ms": d_ms[body, 128, n128],
+                "ms_256": d_ms[body, 256, n256],
+                "us_per_iter_by_cluster": {
+                    str(P): {str(n): us[P, n] for n in p256.CLUSTERS[P]}
+                    for P in p256.PS},
+                "ratio_256_128": d_ms[body, 256, n256] / d_ms[body, 128, n128],
+                "ratio_256_128_by_cluster": {str(n): r
+                                             for n, r in ratios.items()}}})
+    print(f"probe D: {time.perf_counter() - t_probe:.1f} s")
+    t_probe = time.perf_counter()
+    e_err = rank3.check(dev)
+    print(f"probe E: every kind equal to its twin at R = {rank3.CHECK_REPS} "
+          "on the probe's tile and the tile of ties, and to numpy at R = 1 "
+          f"(max diff {max(e_err.values())}); block f of the frame rank "
+          f"ranks frame f alone, so its {rank3.P // rank3.L} frames equal to "
+          "numpy show its grid of one block a frame ran")
+    (e_ms, e_pair), _ = drive(lambda: rank3.timings(dev),
+                              lambda: sum(rank3.run.launches.values()),
+                              "probe E per iteration")
     e_launches = dict(rank3.run.launches)
+    e_pass, _ = drive(lambda: rank3.one_pass_us(dev),
+                      lambda: sum(rank3.run.launches.values()),
+                      "probe E one pass")
+    e_pass_launches = dict(rank3.run.launches)
+    e_roll = {r: rank3.library_us(dev, r) for r in (1, PLAIN_REPS)}
     for kind in rank3.KINDS:
-        check(e_launches.get(kind, 0) > 0, f"probe E {kind} never launched")
-        e_plain = cuda_ms(lambda: rank3.plain(kind, xt_e), 100)
+        check(e_launches.get(kind, 0) > 0 and e_pass_launches.get(kind, 0) > 0,
+              f"probe E {kind} never launched in a timing run "
+              f"({e_launches.get(kind, 0)}, {e_pass_launches.get(kind, 0)})")
+        k_ms, p_ms = e_pair[kind]
+        bound = rank3.bound(kind, PLAIN_REPS)
+        roll = kind == "sublane_roll"
         options.append({
             "name": f"probe_rank3[{kind}]", "route": "cuda",
             "source": "modem_tpu_torch/csrc/probe_rank3.cu",
             "replaces": "bench/probe_rank3.py:33",
-            "launches": e_launches[kind], "max_abs_err": e_err[kind],
-            "ms": e_ms[kind], "plain_ms": e_plain, **rank3.bound(kind),
-            "library_ms": None, "shape": [rank3.P, rank3.C]})
-        print(f"probe E {kind}: kernel and twin equal to numpy (kernel max "
-              f"diff {e_err[kind]}); {e_ms[kind] * 1e3:.2f} us a launch, "
-              f"plain twin {e_plain * 1e3:.2f} us")
+            "launches": e_launches[kind] + e_pass_launches[kind],
+            "max_abs_err": e_err[kind], "reps": PLAIN_REPS, "ms": k_ms,
+            "plain_ms": p_ms, "plain_us_per_iter": p_ms * 1e3 / PLAIN_REPS,
+            **bound, "share": bound["bound_ms"] / k_ms,
+            "library_ms": e_roll[PLAIN_REPS] / 1e3 if roll else None,
+            "shape": [rank3.P, rank3.C],
+            "us_per_iter": e_ms[kind] * 1e3 / rank3.R,
+            "us_reps1_device": e_pass[kind][0],
+            "library_us_reps1_device": e_roll[1] if roll else None,
+            "timing": {"reps": rank3.R, "ms": e_ms[kind]},
+            "launches_per_iteration_run": e_launches[kind],
+            "launches_one_pass_run": e_pass_launches[kind]})
+    for line in rank3.report(e_ms, e_pair, e_pass, e_roll):
+        print("probe E " + line)
+    print(f"probe E: {time.perf_counter() - t_probe:.1f} s")
+    t_probe = time.perf_counter()
     f_err = interleave.check(dev)
     reps = INTERLEAVE_REPS
     f_t, _ = drive(lambda: {c: interleave.timings(reps, WIDTH_REPS, dev, c)
@@ -2316,21 +2357,25 @@ def main() -> int:
     x_f = interleave.inputs(1).to(dev)
     x_w = interleave.inputs(1, 256, 1).to(dev)
     x_n = interleave.inputs(1, interleave.NARROW).to(dev)
-    f_rows = (  # body, replaced site, [P, W], reps, plain twin
-        ("chain", ":107", 128, reps,
-         lambda: interleave.run_plain("chain", x_f, 1, reps)),
-        ("leaf", ":107", 128, reps,
-         lambda: interleave.run_plain("leaf", x_f, 1, reps)),
-        ("narrow", ":177", interleave.NARROW, WIDTH_REPS,
-         lambda: interleave.run_width_plain(x_n, interleave.NARROW,
-                                            WIDTH_REPS)))
     c1 = interleave.CLUSTERS[0]
-    for body, site, width, r, plain in f_rows:
+    nw = interleave.NARROW
+    f_rows = (  # body, replaced site, [P, W], reps, kernel (one chain at
+        # the smallest cluster) and twin of r iterations
+        ("chain", ":107", 128, reps,
+         lambda r: interleave.run("chain", x_f, 1, r, cluster=c1),
+         lambda r: interleave.run_plain("chain", x_f, 1, r)),
+        ("leaf", ":107", 128, reps,
+         lambda r: interleave.run("leaf", x_f, 1, r, cluster=c1),
+         lambda r: interleave.run_plain("leaf", x_f, 1, r)),
+        ("narrow", ":177", nw, WIDTH_REPS,
+         lambda r: interleave.run_width(x_n, nw, r, cluster=c1),
+         lambda r: interleave.run_width_plain(x_n, nw, r)))
+    for body, site, width, r, kernel, plain in f_rows:
         for c in interleave.CLUSTERS:
             for key in (body, f"{body}_shared"):
                 check(key == "chain_shared" or f_launches.get((key, c), 0) > 0,
                       f"probe F {key} at cluster {c} never launched")
-        f_plain = cuda_ms(plain, 1)
+        k_ms, p_ms = _common.pair_ms(kernel, plain)
         bound = interleave.bound("width" if body == "narrow" else body, 1, r,
                                  width)
         by_cluster = {}
@@ -2347,8 +2392,10 @@ def main() -> int:
             print(f"probe F, cluster {c}, {r} reps, "
                   f"{t['single'] * 1e3 / r:.3f} us/iter single, bound "
                   f"{bound['bound_ms'] * 1e3 / r:.6f} us/iter, share "
-                  f"{bound['bound_ms'] / t['single']:.2%}, plain twin single "
-                  f"{f_plain:.1f} ms: " + interleave.report(body, t))
+                  f"{bound['bound_ms'] / t['single']:.2%}: "
+                  + interleave.report(body, t))
+        print(f"probe F {body}: over {PLAIN_REPS} iterations plain twin "
+              f"{p_ms:.3f} ms, kernel {k_ms:.4f} ms (cluster {c1})")
         t = f_t[c1][body]
         options.append({
             "name": f"probe_interleave[{body}]", "route": "cuda",
@@ -2356,13 +2403,17 @@ def main() -> int:
             "replaces": f"bench/probe_interleave.py{site}",
             "launches": sum(v for (k, _), v in f_launches.items()
                             if k in (body, f"{body}_shared")),
-            "max_abs_err": f_err, "ms": t["single"], "plain_ms": f_plain,
-            **bound, "library_ms": None, "shape": [interleave.P, width],
-            "reps": r, "cluster": c1, "dual_ms": t["dual"],
-            "double_ms": t["double"],
-            "verdict": interleave.verdict(t["single"], t["dual"],
-                                          t["double"]),
-            "by_cluster": by_cluster})
+            "max_abs_err": f_err, "reps": PLAIN_REPS, "ms": k_ms,
+            "plain_ms": p_ms, "plain_us_per_iter": p_ms * 1e3 / PLAIN_REPS,
+            **interleave.bound("width" if body == "narrow" else body, 1,
+                               PLAIN_REPS, width),
+            "library_ms": None, "shape": [interleave.P, width],
+            "cluster": c1, "us_per_iter": t["single"] * 1e3 / r,
+            "timing": {"reps": r, "ms": t["single"], "dual_ms": t["dual"],
+                       "double_ms": t["double"],
+                       "verdict": interleave.verdict(t["single"], t["dual"],
+                                                     t["double"]),
+                       "by_cluster": by_cluster}})
         pace = ", ".join(f"{c}: {f_t[c][body]['single'] * 1e3 / r:.3f}"
                          for c in interleave.CLUSTERS)
         print(f"probe F {body}: us/iter single by cluster size {pace}")
@@ -2371,8 +2422,9 @@ def main() -> int:
     for c in interleave.CLUSTERS:
         check(f_launches.get(("width", c), 0) > 0,
               f"probe F width at cluster {c} never launched")
-    w_plain = cuda_ms(lambda: interleave.run_width_plain(x_w, 128, WIDTH_REPS),
-                      1)
+    wk_ms, wp_ms = _common.pair_ms(
+        lambda r: interleave.run_width(x_w, 128, r, cluster=c1),
+        lambda r: interleave.run_width_plain(x_w, 128, r))
     w_bound = interleave.bound("width", 1, WIDTH_REPS)
     options.append({
         "name": "probe_interleave[width]", "route": "cuda",
@@ -2380,23 +2432,28 @@ def main() -> int:
         "replaces": "bench/probe_interleave.py:177",
         "launches": sum(v for (k, _), v in f_launches.items()
                         if k == "width"),
-        "max_abs_err": f_err, "ms": f_t[c1]["width"][128],
-        "plain_ms": w_plain, **w_bound, "library_ms": None,
-        "shape": [interleave.P, 128], "reps": WIDTH_REPS, "cluster": c1,
-        "ms_256": f_t[c1]["width"][256],
-        "bound_ms_256": interleave.bound("width", 1, WIDTH_REPS,
-                                         256)["bound_ms"],
-        "us_per_iter_by_cluster": {str(c): {str(w): v for w, v in u.items()}
-                                   for c, u in w_us.items()}})
+        "max_abs_err": f_err, "reps": PLAIN_REPS, "ms": wk_ms,
+        "plain_ms": wp_ms, "plain_us_per_iter": wp_ms * 1e3 / PLAIN_REPS,
+        **interleave.bound("width", 1, PLAIN_REPS), "library_ms": None,
+        "shape": [interleave.P, 128], "cluster": c1,
+        "us_per_iter": w_us[c1][128],
+        "timing": {"reps": WIDTH_REPS, "ms": f_t[c1]["width"][128],
+                   "ms_256": f_t[c1]["width"][256],
+                   "us_per_iter_by_cluster": {
+                       str(c): {str(w): v for w, v in u.items()}
+                       for c, u in w_us.items()}}})
     print(f"probe F width, {WIDTH_REPS} reps, us/iter by cluster size: "
           + "; ".join(f"{c}: 128 {u[128]:.3f}, 256 {u[256]:.3f} "
                       f"({u[256] / u[128]:.2f}x)" for c, u in w_us.items())
           + f"; bound at 128 {w_bound['bound_ms'] * 1e3 / WIDTH_REPS:.6f} "
-          f"us/iter (plain twin at 128 {w_plain:.1f} ms); probes in "
+          f"us/iter; at 128 over {PLAIN_REPS} iterations plain twin "
+          f"{wp_ms:.3f} ms, kernel {wk_ms:.4f} ms")
+    print(f"probe F: {time.perf_counter() - t_probe:.1f} s; probes D-F in "
           f"{time.perf_counter() - t0:.1f} s")
     print("probe launches, each probe's timing run: D "
           f"{sum(d_launches.values())} ({len(d_launches)} body, P, cluster "
-          f"cells), E {e_launches}, F {sum(f_launches.values())} "
+          f"cells), E {e_launches} and one pass {e_pass_launches}, F "
+          f"{sum(f_launches.values())} "
           f"({len(f_launches)} variant, cluster cells)")
 
     # ---- 13. decode-all ----------------------------------------------------

@@ -8,7 +8,13 @@ import functools
 
 import torch
 
+from ..card import cuda_ms
 from ..kernels import _build
+
+# iterations each probe's plain twin is timed over, and its kernel beside
+# it: the host issues the twin's ops one by one, so its time an iteration
+# settles within a few thousand
+PLAIN_REPS = 2000
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,3 +49,14 @@ def on_card(x: torch.Tensor, name: str) -> bool:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
     return x.device.type == "cuda"
+
+
+def pair_ms(kernel, twin) -> tuple:
+    """(kernel ms, twin ms) of one call of :data:`PLAIN_REPS` iterations
+    on the same inputs: ``kernel(reps)`` after a warm-up call of 2, timed
+    over 5 calls issued back to back (the device paces all but the
+    first's launch); ``twin(reps)`` once, after a warm-up call of 2."""
+    kernel(2)
+    k_ms = cuda_ms(lambda: kernel(PLAIN_REPS), 5)
+    twin(2)
+    return k_ms, cuda_ms(lambda: twin(PLAIN_REPS))

@@ -170,10 +170,12 @@ def check(device="cuda", reps: int = CHECK_R, clusters=None) -> dict:
 
 def timings(device="cuda", reps: int = R) -> tuple:
     """({(body, P, cluster): kernel ms a launch of ``reps`` iterations},
-    {(body, P): plain ms of the same iterations}): at each cluster size a
-    warm-up launch, then the best of two timed ones on scaled inputs (as
-    the probe's best of 4); the twin once."""
-    kernel, plain = {}, {}
+    {(body, P): (kernel ms, twin ms) of one call of PLAIN_REPS
+    iterations, the kernel at P's smallest cluster}): at each cluster
+    size a warm-up launch, then the best of two timed ones on scaled
+    inputs (as the probe's best of 4); the pair by
+    :func:`_common.pair_ms`."""
+    kernel, pair = {}, {}
     for name in BODIES:
         for P in PS:
             x = inputs(P, device)
@@ -182,22 +184,26 @@ def timings(device="cuda", reps: int = R) -> tuple:
                 kernel[name, P, n] = min(
                     cuda_ms(lambda: run(name, x * (1 + 0.003 * k), reps, n))
                     for k in range(2))
-            plain[name, P] = cuda_ms(lambda: run_plain(name, x, reps))
-    return kernel, plain
+            pair[name, P] = _common.pair_ms(
+                lambda r: run(name, x, r, CLUSTERS[P][0]),
+                lambda r: run_plain(name, x, r))
+    return kernel, pair
 
 
-def report(kernel: dict, plain: dict, reps: int = R) -> list:
-    """Lines of µs an iteration a body, P and cluster size, the twin's,
-    and the P = 256 / 128 ratio at each cluster size both run at."""
+def report(kernel: dict, pair: dict, reps: int = R) -> list:
+    """Lines of µs an iteration a body, P and cluster size, the twin's
+    and the kernel's beside it over PLAIN_REPS, and the P = 256 / 128
+    ratio at each cluster size both run at."""
     lines = []
     for k, label in enumerate(LABELS):
         name = BODIES[k]
         for P in PS:
             us = ", ".join(f"{n}: {kernel[name, P, n] * 1e3 / reps:.3f}"
                            for n in CLUSTERS[P])
+            k_ms, p_ms = pair[name, P]
             lines.append(f"{label:34s} P={P:3d}: us/iter by cluster size "
-                         f"{{{us}}} (plain twin "
-                         f"{plain[name, P] * 1e3 / reps:.2f})")
+                         f"{{{us}}}; over {_common.PLAIN_REPS} iterations "
+                         f"plain twin {p_ms:.3f} ms, kernel {k_ms:.4f} ms")
         ratios = ", ".join(
             f"{n}: {kernel[name, 256, n] / kernel[name, 128, n]:.2f}x"
             for n in CLUSTERS[256])

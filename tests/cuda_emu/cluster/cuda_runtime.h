@@ -1,14 +1,19 @@
-// A CPU stand-in for the CUDA features the probes csrc/probe_p256.cu and
-// csrc/probe_interleave.cu use, thread-block clusters included, so that
-// their own sources run on a machine without a GPU (see
-// tests/test_torch_probes_emulated.py).  One std::thread per CUDA thread of
-// every block of a cluster, all at once; a cluster barrier is a
-// std::barrier over them all, each warp collective a deposit and a
-// std::barrier over its 32 lanes; each block has its own dynamic shared
-// memory, which map_shared_rank maps into another block's.  It checks the
-// kernels' logic (indices, which block holds what, the barriers the code
-// calls, the launch's geometry and attributes), not their timing or what
-// the hardware would do with a missing barrier.
+// A CPU stand-in for the CUDA features the probes csrc/probe_p256.cu,
+// csrc/probe_rank3.cu and csrc/probe_interleave.cu use, thread-block
+// clusters included, so that their own sources run on a machine without a
+// GPU (see tests/test_torch_probes_emulated.py).  One std::thread per CUDA
+// thread of every block of a cluster, all at once, the grid's clusters one
+// after another (a grid of independent blocks is a grid of clusters of
+// one); a cluster barrier is a std::barrier over them all, each warp
+// collective (__syncwarp too) a deposit and a std::barrier over its 32
+// lanes; each block has its own dynamic shared memory, which
+// map_shared_rank maps into another block's.  A static __shared__ array is
+// a function-static one, shared by every thread of the process: right
+// while one block runs at a time, which is how E launches (its grids are
+// of independent blocks).  It checks the kernels' logic (indices, which
+// block holds what, the barriers the code calls, the launch's geometry and
+// attributes), not their timing or what the hardware would do with a
+// missing barrier.
 #pragma once
 #include <math.h>
 
@@ -27,6 +32,8 @@
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
@@ -40,6 +47,9 @@ struct alignas(16) float4 {
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -123,25 +133,33 @@ inline T emu_from(uint64_t u) {
   std::memcpy(&v, &u, sizeof(T));
   return v;
 }
+// The shuffles' width: lanes fall in segments of `width` lanes; a source
+// is taken mod width within the lane's own segment, and a lane whose
+// source (down, xor) lies past its segment keeps its own value.
 template <class T>
-inline T __shfl_sync(unsigned, T v, int src) {
+inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  const int seg = threadIdx.x % 32 & ~(width - 1);
   return emu_exchange(emu_bits(v), [&](const uint64_t* s) {
-    return emu_from<T>(s[src & 31]);
+    return emu_from<T>(s[seg + (src & (width - 1))]);
   });
 }
 template <class T>
-inline T __shfl_xor_sync(unsigned, T v, int o) {
-  const int l = threadIdx.x % 32;
+inline T __shfl_xor_sync(unsigned, T v, int o, int width = 32) {
+  const int l = threadIdx.x % 32, seg = l & ~(width - 1);
   return emu_exchange(emu_bits(v), [&](const uint64_t* s) {
-    return emu_from<T>(s[(l ^ o) & 31]);
+    const int t = (l ^ o) & 31;
+    return emu_from<T>(s[t < seg + width ? t : l]);
   });
 }
 template <class T>
-inline T __shfl_down_sync(unsigned, T v, int d) {
+inline T __shfl_down_sync(unsigned, T v, int d, int width = 32) {
   const int l = threadIdx.x % 32;
   return emu_exchange(emu_bits(v), [&](const uint64_t* s) {
-    return emu_from<T>(s[l + d < 32 ? l + d : l]);
+    return emu_from<T>(s[l % width + d < width ? l + d : l]);
   });
+}
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_cl->blocks[emu_rank].warps[threadIdx.x / 32]->arrive_and_wait();
 }
 
 namespace cooperative_groups {

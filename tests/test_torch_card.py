@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from modem_tpu_torch import bits as B
+from modem_tpu_torch.card import GRAPH_CALLS, GRAPH_REPLAYS, graph_ms
 from modem_tpu_torch.decoder import Decoder
 from modem_tpu_torch.encoder import Encoder
 from modem_tpu_torch.fec.polar import PolarCode
@@ -471,11 +472,78 @@ def test_probe_p256_cluster_matches_twin(cuda_device, P, cluster):
 @pytest.mark.cuda
 def test_probe_rank3_matches_numpy(cuda_device):
     """Probe E: each computation's kernel against the probe's numpy
-    expectation (exact, slot extract atol 1e-5)."""
-    x = rank3.inputs()
+    expectation at R = 1 (exact, slot extract atol 1e-5), and composed
+    over 43 iterations on the tile of ties and signed zeros."""
+    x, t = rank3.inputs(), rank3.ties()
     xt = torch.from_numpy(x).to(cuda_device)
+    tt = torch.from_numpy(t).to(cuda_device)
     for kind in rank3.KINDS:
         rank3.check_one(kind, rank3.run(kind, xt), x)
+        rank3.check_one(kind, rank3.run(kind, tt, 43), t, 43)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", rank3.KINDS)
+def test_probe_rank3_matches_twin(cuda_device, kind):
+    """Probe E, one template instance: the kernel against its plain twin
+    at R = 1, 4 and 43, on the probe's tile and on the tile of ties and
+    signed zeros (counts and the roll exact, the slot extract within
+    atol 1e-5 an iteration)."""
+    rank3.check(cuda_device, kinds=(kind,))
+
+
+@pytest.mark.cuda
+def test_probe_rank3_refuses(cuda_device):
+    """The C interface refuses a kind off its table and R outside 1 ..
+    rank3.MAX_REPS (no launch), and the wrapper raises on the code and on
+    a tile its 16-byte accesses cannot take."""
+    x = torch.from_numpy(rank3.inputs()).to(cuda_device)
+    lib = rank3.library()
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    for kind, reps in ((5, 1), (-1, 1), (0, 0), (4, rank3.MAX_REPS + 1)):
+        rc = lib.probe_rank3_launch(kind, x.data_ptr(), out.data_ptr(), reps,
+                                    stream)
+        assert rc != 0, (kind, reps)
+        with pytest.raises(RuntimeError):
+            _common.check_rc(lib, "probe_rank3", rc)
+    shifted = torch.empty(x.numel() + 1, device=cuda_device)[1:]
+    with pytest.raises(ValueError):
+        rank3.run("sublane_roll", shifted.view(rank3.P, rank3.C))
+
+
+@pytest.mark.cuda
+def test_probe_rank3_graph_equals_eager(cuda_device):
+    """Each kind's one-pass launch (R = 1), captured in a CUDA graph as
+    the device timing (card.graph_ms) captures it, writes on replay what
+    an eager launch writes."""
+    x = torch.from_numpy(rank3.inputs()).to(cuda_device)
+    for kind in rank3.KINDS:
+        eager = rank3.run(kind, x)
+        out = torch.empty_like(eager)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            rank3.run(kind, x, 1, out)
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), kind
+
+
+@pytest.mark.cuda
+def test_probe_rank3_one_pass_counts_the_launches_run(cuda_device):
+    """The one-pass timing counts the launches the device ran, from what
+    the wrapper counted: the eager call, the captured calls once a replay
+    (one warm-up and GRAPH_REPLAYS timed), and the 100 host-paced ones;
+    a graph that captured no launch of the kernel counts none."""
+    rank3.run.launches.clear()
+    rank3.one_pass_us(cuda_device)
+    want = 1 + (1 + GRAPH_REPLAYS) * GRAPH_CALLS + 100
+    assert dict(rank3.run.launches) == dict.fromkeys(rank3.KINDS, want)
+    x = torch.from_numpy(rank3.inputs()).to(cuda_device)
+    _, ran = graph_ms(lambda: torch.roll(x, 3, 0),
+                      lambda: rank3.run.launches["sublane_roll"])
+    assert ran == 0
 
 
 @pytest.mark.cuda

@@ -9,8 +9,12 @@ the CPU, against the JAX probes of bench/.
   bound's counts and the cluster sizes the kernel runs at.
 - E (probes.rank3): bench/probe_rank3.py nests its kernels in ``main``;
   restated here (probe_rank3.py:52-129) and run through pallas_call in
-  interpret mode, the twin must equal them (atol 1e-5 for the slot
-  extract) and the probe's own numpy expectation.
+  interpret mode, the twin at R = 1 must equal them (atol 1e-5 for the
+  slot extract) and the probe's own numpy expectation; the iterated twin
+  (R = 4 and 43) must equal that expectation composed R times (atol
+  1e-5 an iteration for the slot extract), on the probe's tile and on a
+  tile of ties and signed zeros; the bound's counts, one a function; the
+  wrapper's refusals.
 - F (probes.interleave): bench/probe_interleave.py is loaded by path
   (bench/ has no __init__.py) and its chain_body, leaf_body and
   leaf_width_body run under lax.fori_loop as make_probe and
@@ -21,6 +25,7 @@ the CPU, against the JAX probes of bench/.
 """
 
 import importlib.util
+import math
 import pathlib
 
 import jax
@@ -234,6 +239,106 @@ def test_frame_rank_is_the_rank_selection_count():
         ranks.reshape(P3, C3).float().numpy())
 
 
+@pytest.mark.parametrize("kind", rank3.KINDS)
+@pytest.mark.parametrize("reps", [4, 43])
+@pytest.mark.parametrize("tile", ["probe", "ties"])
+def test_rank3_iterated_twin_matches_numpy(kind, reps, tile):
+    """R iterations of the twin against the probe's numpy expectation
+    composed R times: the roll by -3R rows (past 128 at R = 43), the
+    others summed over the tile's rows rotated by 0 .. R - 1 columns."""
+    x = rank3.inputs() if tile == "probe" else rank3.ties()
+    rank3.check_one(kind, rank3.plain(kind, torch.from_numpy(x), reps), x,
+                    reps)
+
+
+def test_rank3_iterations_compose():
+    """What R iterations compute, independent of the module's own
+    expectation: the roll by 3 a step wraps (R = 43: 129 rows, one past
+    the tile); over 16 iterations every column of a row takes each of
+    the row's values once, so the all-pairs ranks of distinct values sum
+    to 0 + 1 + ... + 15 in every column, and a row's frame ranks to the
+    same total in every column; the counts stay exact in f32 up to
+    MAX_REPS."""
+    x = rank3.inputs()
+    xt = torch.from_numpy(x)
+    assert torch.equal(rank3.plain("sublane_roll", xt, 43),
+                       torch.roll(xt, -1, dims=0))
+    assert torch.equal(rank3.plain("rank3_allpairs", xt, 16),
+                       torch.full((rank3.P, rank3.C), 120.0))
+    fr = rank3.plain("frame_rank_rolled", xt, 16)
+    once = rank3.plain("frame_rank_rolled", xt, 1)
+    assert torch.equal(fr, once.sum(dim=1, keepdim=True).expand_as(fr))
+    assert rank3.MAX_REPS * (rank3.L * rank3.C - 1) < 2 ** 24
+
+
+def test_rank3_ties_tile_holds_signed_zeros():
+    """The tile of ties: every row holds repeated values and every frame
+    -0.0 beside +0.0; both count as one value (float equality): the tie
+    count pairs them and the frame rank orders them by in-frame index,
+    as the list decoder's rank selection does."""
+    x = rank3.ties()
+    zero = x == 0
+    for f in range(P3 // L3):
+        z = np.signbit(x[f * L3:(f + 1) * L3][zero[f * L3:(f + 1) * L3]])
+        assert z.any() and not z.all()
+    assert all(len(np.unique(row)) < C3 for row in x)
+    row = np.zeros((P3, C3), np.float32)
+    row[:, ::2] = -0.0
+    t = torch.from_numpy(row)
+    ties = rank3.plain("rank3_computed_mask", t)
+    assert ties[0].tolist() == [float(C3 - 1 - q) for q in range(C3)]
+    fr = rank3.plain("frame_rank_rolled", t)
+    assert fr[:L3].flatten().tolist() == [float(i) for i in range(L3 * C3)]
+    for kind in ("rank3_computed_mask", "frame_rank_rolled"):
+        rank3.check_one(kind, rank3.plain(kind, t), row)
+        rank3.check_one(kind, rank3.plain(kind, torch.from_numpy(x)), x)
+
+
+def test_rank3_ops_counts_the_functions():
+    """The bound reads the tile and writes the output once a launch and
+    counts what each function needs an iteration, one count a function
+    (no layout): the all-pairs rank's 240 pairs a row, the tie count's
+    120, one slot an element, the frame rank at the least compares a
+    comparison ranking of 128 keys needs (ceil(log2 128!) = 717 a frame,
+    under a serial merge sort's 769 and the bitonic network's 1,792 the
+    kernel runs), two operations each, and the roll none (bytes bound
+    it)."""
+    assert [rank3.ops(k) for k in rank3.KINDS] == [61_440, 30_720, 8_192,
+                                                   0, 22_944]
+    assert rank3.ops("rank3_allpairs") == 2 * 240 * 128
+    assert rank3.ops("rank3_computed_mask") == 2 * 120 * 128
+    assert rank3.ops("rank2_slot_extract") == 4 * 128 * 16
+    assert rank3.FRAME_COMPARES == (math.factorial(128) - 1).bit_length()
+    assert rank3.FRAME_COMPARES == 717
+    assert rank3.FRAME_COMPARES < 128 * 7 - 2 ** 7 + 1 < 28 * 64
+    assert rank3.ops("frame_rank_rolled") == 2 * 717 * 16
+    b = rank3.bound("frame_rank_rolled", 10)
+    assert b["operations"] == 10 * 22_944
+    assert b["bytes"] == 2 * 4 * 128 * 16
+    roll = rank3.bound("sublane_roll", rank3.R)
+    assert roll["operations"] == 0 and roll["bound_by"] == "bytes"
+    assert roll["bytes"] == 16_384
+    assert rank3.bound("rank2_slot_extract", 3)["bytes"] == 4 * 128 * 24
+
+
+def test_rank3_refuses():
+    """The wrapper raises ValueError, before any launch, on a kind off
+    its table, R outside 1 .. MAX_REPS, a tile of another shape or an
+    output it cannot write (another shape, or not contiguous)."""
+    xt = torch.from_numpy(rank3.inputs())
+    for kind, reps in (("rank4_allpairs", 1), ("rank3_allpairs", 0),
+                       ("sublane_roll", -1),
+                       ("frame_rank_rolled", rank3.MAX_REPS + 1)):
+        with pytest.raises(ValueError):
+            rank3.run(kind, xt, reps)
+    with pytest.raises(ValueError):
+        rank3.run("sublane_roll", xt[:, :8])
+    with pytest.raises(ValueError):
+        rank3.run("rank2_slot_extract", xt, 1, torch.empty(P3, C3))
+    with pytest.raises(ValueError):
+        rank3.run("rank3_allpairs", xt, 1, torch.empty(C3, P3).t())
+
+
 # -- F: bench/probe_interleave.py ----------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -348,6 +453,10 @@ def test_cpu_tensors_take_the_twins():
     xt = torch.from_numpy(rank3.inputs())
     assert torch.equal(rank3.run("sublane_roll", xt),
                        rank3.plain("sublane_roll", xt))
+    for kind in rank3.KINDS:
+        out = torch.empty(P3, rank3.out_cols(kind))
+        assert rank3.run(kind, xt, 4, out) is out
+        assert torch.equal(out, rank3.plain(kind, xt, 4))
     xi = interleave.inputs(0)
     for got, want in ((interleave.run("chain", xi, 1, 2),
                        interleave.run_plain("chain", xi, 1, 2)),

@@ -1,23 +1,29 @@
-"""The probes' own CUDA sources (csrc/probe_p256.cu, csrc/probe_interleave.cu)
-run on the CPU through a stand-in for the CUDA runtime and thread-block
-clusters (tests/cuda_emu/cluster: a thread per CUDA thread of every block
-of a cluster, barriers for the cluster barrier and the warp collectives,
-each block's shared memory mapped into the others'), held to their plain
-twins at every cluster size the card times:
+"""The probes' own CUDA sources (csrc/probe_p256.cu, csrc/probe_rank3.cu,
+csrc/probe_interleave.cu) run on the CPU through a stand-in for the CUDA
+runtime and thread-block clusters (tests/cuda_emu/cluster: a thread per
+CUDA thread of every block of a cluster, barriers for the cluster barrier
+and the warp collectives, each block's shared memory mapped into the
+others'; a grid of independent blocks runs block by block), held to their
+plain twins at every cluster size the card times:
 
 - D: every body at P = 128 and 256, R = 4, at p256.RTOL; the one-hot
   body exactly at R = P + 3, so that the row it pushes comes from every
   block in turn and wraps to the first;
+- E: each of the five kinds at R = 1, 4 and 43 (the roll wraps past the
+  128 rows), on the probe's tile and on the tile of ties and signed
+  zeros, at rank3's tolerance (counts and the roll exact); the frame
+  rank as its grid of 16 blocks of one warp, a frame a block;
 - F: every kernel (chain and leaf at one and two chains, the leaf's
   shared dual, width 128 and 256, narrow at one and two chains and
   shared) at 8 and 40 iterations, out and pm each at its tolerance;
-- the C interfaces refuse a cluster size they do not take.
+- the C interfaces refuse a cluster size, a kind or an R they do not
+  take.
 
 This checks the kernels' logic (which block holds which rows, what is
 pushed where, the buffers' parity, the launch's geometry and shared
 memory attributes) at their real sizes; their speed and the hardware's
 view of them are the card's (tests/test_torch_card.py).  Needs g++ with
-C++20 (std::barrier); the two builds take ~3 s."""
+C++20 (std::barrier); the three builds take ~5 s."""
 
 import pathlib
 import re
@@ -28,20 +34,25 @@ import numpy as np
 import pytest
 import torch
 
-from modem_tpu_torch.probes import interleave, p256
+from modem_tpu_torch.probes import interleave, p256, rank3
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 EMU = pathlib.Path(__file__).resolve().parent / "cuda_emu" / "cluster"
-PROBES = {"probe_p256": ("-DPROBE_P256",), "probe_interleave": ()}
+# name: (defines, whether its kernels take dynamic shared memory; E's
+# arrays are static)
+PROBES = {"probe_p256": (("-DPROBE_P256",), True),
+          "probe_rank3": (("-DPROBE_RANK3",), False),
+          "probe_interleave": ((), True)}
 
 
 def emulated_source(name: str) -> str:
     """csrc/<name>.cu with its dynamic shared memory and inline PTX (the
     relaxed cluster barrier) replaced for the stand-in, and the harness
-    appended."""
+    appended.  Static __shared__ arrays stay: the stand-in makes them
+    function-static, one copy for the one block that runs at a time."""
     src = (ROOT / "modem_tpu_torch" / "csrc" / f"{name}.cu").read_text()
     shared = "extern __shared__ float smem[];"
-    assert src.count(shared) == 1
+    assert src.count(shared) == int(PROBES[name][1])
     src = src.replace(shared, "float* smem = emu_dynamic_smem<float>();")
     src = re.sub(r"asm volatile\(.*?\);", "cg::this_cluster().sync();", src,
                  flags=re.S)
@@ -54,7 +65,7 @@ def emulator(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++ to build the emulated probes")
     out = tmp_path_factory.mktemp("probe_emu")
-    for name, defines in PROBES.items():
+    for name, (defines, _) in PROBES.items():
         (out / f"{name}.cpp").write_text(emulated_source(name))
         proc = subprocess.run(
             [gxx, "-std=c++20", "-O1", "-pthread", "-w", *defines,
@@ -101,6 +112,32 @@ def test_emulated_p256_one_hot_from_every_block(emulator, P):
     want = p256.run_plain("one_hot", x, reps)
     for n in p256.CLUSTERS[P]:
         assert torch.equal(run_d(emulator, "one_hot", x, reps, n), want), n
+
+
+def run_e(emulator, kind, x, reps):
+    rc, y = launch(emulator, "probe_rank3", x, rank3.P * rank3.out_cols(kind),
+                   rank3.KINDS.index(kind), reps)
+    assert rc == 0, (kind, reps, rc)
+    return y.reshape(rank3.P, rank3.out_cols(kind))
+
+
+@pytest.mark.parametrize("kind", rank3.KINDS)
+def test_emulated_rank3_matches_twin(emulator, kind):
+    for tile in (rank3.inputs(), rank3.ties()):
+        x = torch.from_numpy(tile)
+        for reps in rank3.CHECK_REPS:
+            rank3.held(kind, run_e(emulator, kind, x, reps),
+                       rank3.plain(kind, x, reps), reps, "emulated kernel")
+
+
+def test_emulated_rank3_refuses(emulator):
+    """E's C interface refuses a kind off its table and R outside 1 ..
+    rank3.MAX_REPS, and launches nothing."""
+    x = torch.from_numpy(rank3.inputs())
+    for kind, reps in ((5, 1), (-1, 1), (0, 0), (3, -2),
+                       (4, rank3.MAX_REPS + 1)):
+        assert launch(emulator, "probe_rank3", x, rank3.P * rank3.C, kind,
+                      reps)[0], (kind, reps)
 
 
 F_CASES = {  # name: (body, chains, width, shared, input, twin)

@@ -20,6 +20,7 @@ import functools
 import numpy as np
 import torch
 
+from .profiling import upload, wait
 from .sync import as_recording, window_sum
 
 
@@ -47,7 +48,8 @@ def analytic(x: torch.Tensor, taps: int) -> torch.Tensor:
     (zeros before the recording), as a product of the sliding windows
     with the reversed taps in f32 (no convolution library, whose f32
     path may run in TF32)."""
-    h = torch.from_numpy(hilbert_taps(taps)).to(x.device)
+    with wait("frontend.taps"):
+        h = torch.from_numpy(hilbert_taps(taps)).to(x.device)
     d = (taps - 1) // 2
     xp = torch.cat([x.new_zeros(taps - 1), x])
     im = xp.unfold(0, taps, 1) @ h.flip(0)
@@ -61,7 +63,8 @@ def frontend(samples, channels: int, dc_window: int, taps: int,
     ``device`` (decode.cc:294-301).  Real samples with channels == 1: DC
     block, then Hilbert, of [T] (or the first column of [T, C]);
     otherwise the I/Q pair [T, 2], or a complex [T], passes through."""
-    x = torch.as_tensor(samples, device=device)
+    with upload("frontend.upload", samples, device):
+        x = torch.as_tensor(samples, device=device)
     if channels == 1 and not x.is_complex():
         if x.dim() == 2:
             x = x[:, 0]

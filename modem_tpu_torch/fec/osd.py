@@ -29,6 +29,8 @@ import functools
 import numpy as np
 import torch
 
+from .. import profiling
+from ..profiling import span, wait
 from . import bch
 
 _BIG = 3.4e38    # masked (non-canonical) score
@@ -65,7 +67,9 @@ def _rref_gf2(mat: torch.Tensor):
     """Reduced row echelon form of a batch of [k, n] GF(2) matrices (uint8
     0/1) by a scan over the n columns in order, so the pivots are the
     first k independent columns.  Returns (reduced [B, k, n], pivot
-    column per row [B, k])."""
+    column per row [B, k]).  Adds the n columns walked to
+    ``profiling.osd_steps``; each column's clear waits for the card once
+    (the host's 0 copied there)."""
     batch, k, n = mat.shape
     dev = mat.device
     m = mat.clone()
@@ -73,6 +77,7 @@ def _rref_gf2(mat: torch.Tensor):
     bidx = torch.arange(batch, device=dev)
     rank = torch.zeros(batch, dtype=torch.int64, device=dev)
     pivots = torch.zeros(batch, k, dtype=torch.int64, device=dev)
+    profiling.osd_steps += n
     for col in range(n):
         colv = m[:, :, col] > 0
         cand = torch.where(colv & (rows >= rank[:, None]), rows, k)
@@ -85,7 +90,8 @@ def _rref_gf2(mat: torch.Tensor):
         m[bidx, rk] = row_piv
         # clear the column in every other row
         elim = m[:, :, col].clone()
-        elim[bidx, rk] = 0
+        with wait("osd.column"):
+            elim[bidx, rk] = 0
         elim = elim * do[:, None]
         m ^= elim[:, :, None] & m[bidx, rk][:, None, :]
         pivots[bidx, rk] = torch.where(do, col, pivots[bidx, rk])
@@ -121,38 +127,45 @@ def osd_decode(soft, genmat: np.ndarray | None = None, order: int = 4):
     soft = soft.reshape(-1, soft.shape[-1]).to(torch.float32)
     batch = soft.shape[0]
     k, n = genmat.shape
-    g = torch.tensor(np.asarray(genmat, dtype=np.uint8), device=dev)
+    with wait("osd.upload"):
+        g = torch.tensor(np.asarray(genmat, dtype=np.uint8), device=dev)
 
-    # reliability order, most reliable first; ties keep column order
-    perm = torch.argsort(-soft.abs(), dim=1, stable=True)
-    g_perm = g[:, perm].permute(1, 0, 2)                 # [B, k, n]
-    soft_perm = soft.gather(1, perm)
-    hard = (soft_perm < 0).to(torch.uint8)
+    with span("osd.eliminate"):
+        # reliability order, most reliable first; ties keep column order
+        perm = torch.argsort(-soft.abs(), dim=1, stable=True)
+        g_perm = g[:, perm].permute(1, 0, 2)             # [B, k, n]
+        soft_perm = soft.gather(1, perm)
+        hard = (soft_perm < 0).to(torch.uint8)
+        g_red, pivots = _rref_gf2(g_perm)
 
-    g_red, pivots = _rref_gf2(g_perm)
-    c0 = _gf2_matmul(hard.gather(1, pivots)[:, None, :], g_red)[:, 0]
-    # flipping codeword bit i costs t_i
-    t = (1.0 - 2.0 * c0.float()) * soft_perm             # [B, n]
+    with span("osd.score"):
+        c0 = _gf2_matmul(hard.gather(1, pivots)[:, None, :], g_red)[:, 0]
+        # flipping codeword bit i costs t_i
+        t = (1.0 - 2.0 * c0.float()) * soft_perm         # [B, n]
 
-    sup_np, _ = _pattern_support(k)
-    sup = torch.as_tensor(sup_np, device=dev)
-    p = sup.shape[0]
-    rows = g_red[:, sup.clamp(min=0)] * (sup >= 0)[None, :, :, None]
-    u = (rows[:, :, 0] ^ rows[:, :, 1]).float()          # [B, P, n]
-    # Exact in f32 and in TF32 alike: u is 0/1 and t holds integers of
-    # magnitude <= 128, so every product is an integer of <= 8 bits and
-    # every sum (<= 255 terms, |sum| <= 32,640) is exact in f32.
-    d_single = (u @ t[:, :, None])[..., 0]               # [B, P]
-    cross = u @ (u * t[:, None, :]).transpose(1, 2)      # [B, P, P]
-    scores = d_single[:, :, None] + d_single[:, None, :] - 2.0 * cross
-    valid = torch.as_tensor(_canonical_mask(k), device=dev)
-    flat = torch.where(valid, scores, _BIG).reshape(batch, p * p)
-    best = flat.argmin(dim=1)              # the first minimum, as jnp
-    best_score = flat.gather(1, best[:, None])
-    unique = (flat == best_score).sum(dim=1) == 1
-    a, b = best // p, best % p
-    bidx = torch.arange(batch, device=dev)
-    c_best = c0 ^ u[bidx, a].to(torch.uint8) ^ u[bidx, b].to(torch.uint8)
-    # undo the reliability order; the systematic prefix is the data
-    codeword = torch.empty_like(c_best).scatter_(1, perm, c_best)
+        sup_np, _ = _pattern_support(k)
+        with wait("osd.upload"):
+            sup = torch.as_tensor(sup_np, device=dev)
+        p = sup.shape[0]
+        rows = g_red[:, sup.clamp(min=0)] * (sup >= 0)[None, :, :, None]
+        u = (rows[:, :, 0] ^ rows[:, :, 1]).float()      # [B, P, n]
+        # Exact in f32 and in TF32 alike: u is 0/1 and t holds integers
+        # of magnitude <= 128, so every product is an integer of <= 8
+        # bits and every sum (<= 255 terms, |sum| <= 32,640) is exact in
+        # f32.
+        d_single = (u @ t[:, :, None])[..., 0]           # [B, P]
+        cross = u @ (u * t[:, None, :]).transpose(1, 2)  # [B, P, P]
+        scores = d_single[:, :, None] + d_single[:, None, :] - 2.0 * cross
+        with wait("osd.upload"):
+            valid = torch.as_tensor(_canonical_mask(k), device=dev)
+        flat = torch.where(valid, scores, _BIG).reshape(batch, p * p)
+        best = flat.argmin(dim=1)          # the first minimum, as jnp
+        best_score = flat.gather(1, best[:, None])
+        unique = (flat == best_score).sum(dim=1) == 1
+        a, b = best // p, best % p
+        bidx = torch.arange(batch, device=dev)
+        c_best = (c0 ^ u[bidx, a].to(torch.uint8)
+                  ^ u[bidx, b].to(torch.uint8))
+        # undo the reliability order; the systematic prefix is the data
+        codeword = torch.empty_like(c_best).scatter_(1, perm, c_best)
     return (codeword[:, :k].reshape(lead + (k,)), unique.reshape(lead))

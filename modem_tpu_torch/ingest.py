@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from . import dsp
+from .profiling import upload, wait
 from .sync import _BLK, gather_windows, window_sum
 
 
@@ -85,7 +86,8 @@ class PcmRecording:
                 if not data.flags.writeable:
                     data = data.copy()
                 data = torch.from_numpy(np.ascontiguousarray(data))
-            t = data.to(device)
+            with upload("ingest.upload", data, device):
+                t = data.to(device)
             self._device_copy[key] = t
         return t
 
@@ -93,7 +95,9 @@ class PcmRecording:
         """Wire-dtype windows [n, length] (or [n, length, 2]), window i
         covering samples [starts[i], starts[i] + length), quantised
         silence outside the recording, cut from the device copy."""
-        starts = torch.as_tensor(starts, dtype=torch.int64, device=device)
+        with upload("sync.starts", starts, device):
+            starts = torch.as_tensor(starts, dtype=torch.int64,
+                                     device=device)
         return gather_windows(self.on(device), starts, length, self.fill)
 
     def dequant_np(self) -> np.ndarray:
@@ -225,7 +229,8 @@ def analytic_chunk(raw: torch.Tensor, abs0, lead: int, out_len: int,
     absi = abs0[..., None] + torch.arange(x.shape[-1], device=raw.device)
     cnt = (absi + 1).clamp(1, dc_window).to(torch.float32)
     y = x - s / cnt
-    h = torch.from_numpy(dsp.hilbert_taps(taps)).to(raw.device)
+    with wait("frontend.taps"):
+        h = torch.from_numpy(dsp.hilbert_taps(taps)).to(raw.device)
     d = (taps - 1) // 2
     # im[n] = sum_k h[k] y[n - k] for n = lead + j
     span = y[..., lead - (taps - 1): lead + out_len]

@@ -34,6 +34,7 @@ end runs on the device.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import time
@@ -49,6 +50,7 @@ from .kernels import unroll
 from .kernels.sc_decode import ScPlan, sc_decode
 from .kernels.scl_decode import LIST_SIZES, scl_decode
 from .numerology import MODES, ModemConfig
+from .profiling import span, upload, wait
 from .state import build_state
 from .sync import Synchronizer, slice_windows
 
@@ -70,7 +72,8 @@ def as_recordings(recordings, device) -> torch.Tensor:
     if x.dim() != 2:
         raise ValueError(f"recordings must be a batch [B, T], got "
                          f"{tuple(x.shape)}")
-    return x.to(device=device, dtype=torch.complex64)
+    with upload("pipeline.upload", recordings, device):
+        return x.to(device=device, dtype=torch.complex64)
 
 
 class BatchPipeline:
@@ -343,7 +346,22 @@ class BatchPipeline:
 
     def fetch(self, res: dict) -> dict:
         """The result dict as host numpy arrays, in one transfer."""
-        return self.unpack(self.pack(res))
+        block, snr_cols, nb = self.pack(res)
+        with wait("pipeline.fetch"):
+            block = block.cpu()
+        return self.unpack((block, snr_cols, nb))
+
+
+class Handle(tuple):
+    """What :meth:`AdaptivePipeline.decode_batch_async` returns: the tuple
+    (front end dict, packed block, event) that :meth:`AdaptivePipeline.
+    resolve` takes, carrying the batch's request id (None when the batch
+    was dispatched untraced)."""
+
+    def __new__(cls, parts, request):
+        self = super().__new__(cls, parts)
+        self.request = request
+        return self
 
 
 class AdaptivePipeline:
@@ -380,18 +398,27 @@ class AdaptivePipeline:
         """Dispatch the front end, the SC back end and the result pack,
         then the copy of the packed block to pinned host memory, all on
         the current stream; returns a handle for :meth:`resolve`.
-        Nothing here waits for the device."""
-        front = self.sc.demod(recordings)
-        block, snr_cols, nb = self.sc.pack(self.sc._fec_select(front))
-        event = None
-        if block.is_cuda:
-            host = torch.empty(block.shape, dtype=block.dtype,
-                               pin_memory=True)
-            host.copy_(block, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            block = host
-        return front, (block, snr_cols, nb), event
+        Nothing here waits for the device (unless the recordings are on
+        the host: their upload does).  The handle unpacks as (front end
+        dict, packed block, event); its ``request`` is the id its spans
+        share while tracing (:mod:`profiling`)."""
+        with span("pipeline.dispatch") as rec:
+            with span("pipeline.demod", device=self.sc.device):
+                front = self.sc.demod(recordings)
+            with span("pipeline.sc"):
+                res = self.sc._fec_select(front)
+            with span("pipeline.pack"):
+                block, snr_cols, nb = self.sc.pack(res)
+                event = None
+                if block.is_cuda:
+                    host = torch.empty(block.shape, dtype=block.dtype,
+                                       pin_memory=True)
+                    host.copy_(block, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                    block = host
+        return Handle((front, (block, snr_cols, nb), event),
+                      None if rec is None else rec.request)
 
     def resolve(self, handle) -> dict:
         """Wait for this batch's packed result (its event, not the whole
@@ -400,21 +427,28 @@ class AdaptivePipeline:
         C with ``scl_exact=False``); returns
         the merged host dict (the :meth:`BatchPipeline.fetch` keys)."""
         front, packed, event = handle
-        if event is not None:
-            event.synchronize()
-        host = self.sc.unpack(packed)
-        fails = np.flatnonzero(~host["ok"])
-        self.last_fallbacks = int(fails.size)
-        bf = self.fallback_batch
-        for g0 in range(0, fails.size, bf):
-            group = fails[g0: g0 + bf]
-            idx = np.full(bf, group[0], dtype=np.int64)  # pad: repeat
-            idx[: group.size] = group
-            idx = torch.as_tensor(idx, device=self.sc.device)
-            sub = {k: v.index_select(0, idx) for k, v in front.items()}
-            h2 = self.scl.fetch(self.scl._fec_select(sub))
-            for k in host:
-                host[k][group] = h2[k][: group.size]
+        with span("pipeline.resolve", request=getattr(handle, "request",
+                                                      None)):
+            if event is not None:
+                with wait("pipeline.wait"):
+                    event.synchronize()
+            with span("pipeline.unpack"):
+                host = self.sc.unpack(packed)
+            fails = np.flatnonzero(~host["ok"])
+            self.last_fallbacks = int(fails.size)
+            bf = self.fallback_batch
+            for g0 in range(0, fails.size, bf):
+                with span("pipeline.escalate"):
+                    group = fails[g0: g0 + bf]
+                    idx = np.full(bf, group[0], dtype=np.int64)  # pad: repeat
+                    idx[: group.size] = group
+                    with wait("pipeline.upload"):
+                        idx = torch.as_tensor(idx, device=self.sc.device)
+                    sub = {k: v.index_select(0, idx)
+                           for k, v in front.items()}
+                    h2 = self.scl.fetch(self.scl._fec_select(sub))
+                    for k in host:
+                        host[k][group] = h2[k][: group.size]
         return host
 
     def decode_batch(self, recordings) -> dict:
@@ -488,7 +522,9 @@ def decode_recording_auto(x, rate: int, channels: int = 2,
     the same on anything either decodes.  ``stats``: a dict that gets
     the wall milliseconds of the stages (``scan_ms``, ``headers_ms``,
     ``windows_ms``, ``payload_ms``, each ending in a device
-    synchronise) and the scan's chunk count (``chunks``).
+    synchronise) and the scan's chunk count (``chunks``).  The stages
+    are the spans ``decode_all.scan``, ``.headers``, ``.windows`` and
+    ``.payload`` of one request (:mod:`profiling`).
 
     Returns a time-ordered list of one dict a preamble that passed the
     sync gates: {pos, mode, call_sign, ok, payload, flips, snr, status},
@@ -498,53 +534,59 @@ def decode_recording_auto(x, rate: int, channels: int = 2,
     from .ingest import PcmRecording
 
     dec = cached_decoder(rate, mls_convention=mls_convention, device=device)
-    t0 = time.perf_counter()
+    request = None
 
-    def lap(key: str, **extra) -> None:
-        """Wall ms since the last lap, ending in a device synchronise."""
-        nonlocal t0
-        if stats is None:
-            return
-        if dec.device.type == "cuda":
-            torch.cuda.synchronize(dec.device)
-        now = time.perf_counter()
-        stats[key] = (now - t0) * 1e3
-        stats.update(extra)
-        t0 = now
+    @contextlib.contextmanager
+    def stage(key: str):
+        """The span ``decode_all.<key>``; with ``stats``, its wall ms as
+        ``<key>_ms``, ending in a device synchronise."""
+        nonlocal request
+        with span("decode_all." + key, request=request) as rec:
+            request = None if rec is None else rec.request
+            t0 = time.perf_counter()
+            yield
+            if stats is not None:
+                if dec.device.type == "cuda":
+                    with wait("decode_all.sync"):
+                        torch.cuda.synchronize(dec.device)
+                stats[key + "_ms"] = (time.perf_counter() - t0) * 1e3
 
-    if not isinstance(x, PcmRecording):
-        x = dec.frontend(x, channels)
-    cands = [c for c in dec.sync.scan(x, max_candidates=max_frames)
-             if c.ok]
-    lap("scan_ms", chunks=dec.sync.last_chunks)
+    with stage("scan"):
+        if not isinstance(x, PcmRecording):
+            x = dec.frontend(x, channels)
+        cands = [c for c in dec.sync.scan(x, max_candidates=max_frames)
+                 if c.ok]
+    if stats is not None:
+        stats["chunks"] = dec.sync.last_chunks
     frames = []          # (pos, mode, call, convention)
     rejects = []
-    for c, (hdr, status) in zip(cands, dec.decode_headers_batch(x, cands)):
-        if hdr is None:
-            rejects.append(dict(pos=int(c.p0), mode=None, call_sign="",
-                                ok=False, payload=b"", flips=None,
-                                snr=None, status=status))
-            continue
-        oper_mode, call = hdr
-        frames.append((c.p0, oper_mode, B.base37_decode(call).lstrip(),
-                       dec.sync.conventions[c.conv]))
-    lap("headers_ms")
-    groups: dict[tuple, list[int]] = {}
-    for i, (_p, mode, _c, conv) in enumerate(frames):
-        groups.setdefault((mode, conv), []).append(i)
-    factory = cached_adaptive_pipeline if adaptive else cached_pipeline
-    cut = []
-    for (mode, conv), idxs in groups.items():
-        pipe = factory(rate, mode, mls_convention=conv, device=device)
-        wins, _ = pipe.windows_at(x, [frames[i][0] for i in idxs])
-        cut.append((pipe, idxs, wins))
-    lap("windows_ms")
+    with stage("headers"):
+        for c, (hdr, status) in zip(cands,
+                                    dec.decode_headers_batch(x, cands)):
+            if hdr is None:
+                rejects.append(dict(pos=int(c.p0), mode=None, call_sign="",
+                                    ok=False, payload=b"", flips=None,
+                                    snr=None, status=status))
+                continue
+            oper_mode, call = hdr
+            frames.append((c.p0, oper_mode, B.base37_decode(call).lstrip(),
+                           dec.sync.conventions[c.conv]))
+    with stage("windows"):
+        groups: dict[tuple, list[int]] = {}
+        for i, (_p, mode, _c, conv) in enumerate(frames):
+            groups.setdefault((mode, conv), []).append(i)
+        factory = cached_adaptive_pipeline if adaptive else cached_pipeline
+        cut = []
+        for (mode, conv), idxs in groups.items():
+            pipe = factory(rate, mode, mls_convention=conv, device=device)
+            wins, _ = pipe.windows_at(x, [frames[i][0] for i in idxs])
+            cut.append((pipe, idxs, wins))
     results = [None] * len(frames)
-    for pipe, idxs, wins in cut:
-        res = pipe.fetch(pipe.decode_windows(wins))
-        for j, i in enumerate(idxs):
-            results[i] = (pipe, res, j)
-    lap("payload_ms")
+    with stage("payload"):
+        for pipe, idxs, wins in cut:
+            res = pipe.fetch(pipe.decode_windows(wins))
+            for j, i in enumerate(idxs):
+                results[i] = (pipe, res, j)
     out = []
     for (p0, mode, call, _conv), (pipe, res, j) in zip(frames, results):
         ok = bool(res["ok"][j])

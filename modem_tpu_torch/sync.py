@@ -27,6 +27,7 @@ import torch
 
 from . import bits as B
 from . import fft, ofdm
+from .profiling import upload, wait
 from .mesh import all_gather_rows
 from .numerology import ModemConfig
 
@@ -100,7 +101,11 @@ def last_true(mask: torch.Tensor, fill) -> torch.Tensor:
                         device=mask.device)
     # every false index writes slot 0, which the fill then overwrites
     table.scatter_(-1, torch.where(mask, count, 0), idx)
-    table[..., 0] = fill
+    if isinstance(fill, torch.Tensor):
+        table[..., 0] = fill
+    else:
+        with wait("sync.fill"):          # a host scalar copied to the card
+            table[..., 0] = fill
     return table.gather(-1, count)
 
 
@@ -401,8 +406,9 @@ class Synchronizer:
         (``bits`` None) gives its windows as they are."""
         from . import ingest
         if isinstance(x, torch.Tensor):
-            starts = torch.as_tensor(starts, dtype=torch.int64,
-                                     device=self.device)
+            with upload("sync.starts", starts, self.device):
+                starts = torch.as_tensor(starts, dtype=torch.int64,
+                                         device=self.device)
             return gather_windows(x, starts, out_len, 0)
         if x.bits is None:
             return x.raw_windows(starts, out_len, self.device)
@@ -411,8 +417,9 @@ class Synchronizer:
         lead = self.front_lead if mono else 0
         raw = x.raw_windows(starts - lead, lead + out_len, self.device)
         if mono:
-            return ingest.analytic_chunk(raw, (starts - lead).to(self.device),
-                                         lead, out_len, x.bits,
+            with upload("sync.starts", starts, self.device):
+                abs0 = (starts - lead).to(self.device)
+            return ingest.analytic_chunk(raw, abs0, lead, out_len, x.bits,
                                          self.dc_window, self.taps)
         iq = ingest.dequant(raw, x.bits)
         return torch.complex(iq[..., 0], iq[..., 1])
@@ -461,19 +468,29 @@ class Synchronizer:
         s, f, seg_id, vmax, idx, ph = regions = self._chunk_regions(
             t_c, psh_c, n0, state)
         continue_region(regions, best)
-        edges = torch.nonzero(f)[:, 0]
+        with wait("sync.nonzero"):
+            edges = torch.nonzero(f)[:, 0]
         e_seg = seg_id[edges]
         last = seg_id[-1]
-        return (edges, idx[e_seg], ph[e_seg], s[-1],
-                (vmax[last], idx[last], ph[last]))
+        out = (edges, idx[e_seg], ph[e_seg], s[-1])
+        # a 0-d tensor index is read on the host, once a carry
+        with wait("sync.carry"):
+            v = vmax[last]
+        with wait("sync.carry"):
+            i = idx[last]
+        with wait("sync.carry"):
+            p = ph[last]
+        return out + ((v, i, p),)
 
     def scan_start(self):
         """The scan's carries at the recording start: (Schmitt state, (value,
         index, phase) of the open collect region), device tensors."""
         dev = self.device
-        return (torch.tensor(False, device=dev),
-                (torch.tensor(-math.inf, device=dev),
-                 torch.tensor(0, device=dev), torch.tensor(0.0, device=dev)))
+        carry = []
+        for v in (False, -math.inf, 0, 0.0):
+            with wait("sync.start"):
+                carry.append(torch.tensor(v, device=dev))
+        return carry[0], tuple(carry[1:])
 
     def chunk_step(self, x, n0: int, c: int, ctx: int, carry, n_out: int,
                    max_edges: int | None = None):
@@ -491,8 +508,10 @@ class Synchronizer:
         if edges.numel():
             if max_edges is not None:
                 edges, nmax, ph = (v[:max_edges] for v in (edges, nmax, ph))
-            host = torch.stack([edges + n0, nmax]).cpu().numpy()
-            phs = ph.cpu().numpy()
+            with wait("sync.events"):
+                host = torch.stack([edges + n0, nmax]).cpu().numpy()
+            with wait("sync.events"):
+                phs = ph.cpu().numpy()
             for e, nm, q in zip(host[0], host[1], phs):
                 if e < n_out:
                     events.append((int(e), int(nm), float(q)))
@@ -673,11 +692,14 @@ class Synchronizer:
         convention order), and the best of them (of all, when none
         passes) fills its fields."""
         L, cfg = self.L, self.cfg
-        fcs = torch.tensor([fc for _, fc in events], dtype=torch.float32,
-                           device=wins.device)
+        with wait("sync.fine"):
+            fcs = torch.tensor([fc for _, fc in events], dtype=torch.float32,
+                               device=wins.device)
         shift, pos_err, peak, nxt, _ = self._fine_stage_all(wins, fcs)
-        ints = torch.stack([shift, pos_err]).cpu().numpy()    # [2, n, K]
-        floats = torch.stack([peak, nxt]).cpu().numpy()
+        with wait("sync.fine"):
+            ints = torch.stack([shift, pos_err]).cpu().numpy()  # [2, n, K]
+        with wait("sync.fine"):
+            floats = torch.stack([peak, nxt]).cpu().numpy()
         out = []
         for i, (p0, fc) in enumerate(events):
             alts = []

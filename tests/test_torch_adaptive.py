@@ -9,11 +9,13 @@ FFTs round differently).  Port against port: every key exactly.
 
 import numpy as np
 import pytest
+import torch
 
 from modem_tpu.parallel import toy_config as jax_toy_config
 from modem_tpu.parallel import toy_recordings
 from modem_tpu.pipeline import AdaptivePipeline as JaxAdaptivePipeline
 from modem_tpu.pipeline import BatchPipeline as JaxBatchPipeline
+from modem_tpu_torch import profiling
 from modem_tpu_torch.numerology import toy_config
 from modem_tpu_torch.pipeline import (AdaptivePipeline, BatchPipeline,
                                       cached_adaptive_pipeline,
@@ -188,3 +190,95 @@ def test_fast_list_decode_matches_jax(noisy):
     assert_matches_jax(got, want)
     whole = _toy(BatchPipeline, scl_exact=False, state=port.sc.state)
     assert_equal(got, whole.fetch(whole.decode_batch(x)))
+
+
+# -- spans and counters of the serving loop (modem_tpu_torch.profiling) ---------
+
+@pytest.fixture(scope="module")
+def traced_batches(port, clean, noisy):
+    """The clean and the noisy batch dispatched together and resolved in
+    the other order, once with tracing off and once under torch.profiler:
+    (syncs off, the off run's records, record_function entries off,
+    syncs on, the on run's records, the two handles, the results)."""
+    mp = pytest.MonkeyPatch()
+    entered = []
+    real = torch.profiler.record_function
+    mp.setattr(torch.profiler, "record_function",
+               lambda name, *a: entered.append(name) or real(name, *a))
+
+    def serve():
+        h1 = port.decode_batch_async(clean[0])
+        h2 = port.decode_batch_async(noisy[0])
+        return (h1, h2), (port.resolve(h2), port.resolve(h1))
+
+    try:
+        profiling.clear_spans()
+        s0 = profiling.syncs
+        serve()
+        off = (profiling.syncs - s0, profiling.spans(), list(entered))
+        s0 = profiling.syncs
+        with torch.profiler.profile():
+            handles, results = serve()
+        on = (profiling.syncs - s0, profiling.spans())
+    finally:
+        mp.undo()
+    return off + on + (handles, results)
+
+
+def test_batches_record_no_span_when_tracing_is_off(traced_batches):
+    syncs_off, recs_off, entered = traced_batches[:3]
+    assert recs_off == [] and entered == []
+    assert syncs_off == traced_batches[3] > 0
+
+
+def test_batch_spans_nest_and_share_their_request(traced_batches,
+                                                  noisy_results):
+    recs, (h1, h2), (r2, r1) = traced_batches[4:]
+    assert_equal(r2, noisy_results[0])
+    byid = {r.id: r for r in recs}
+    pairs = [(r.name, byid[r.parent].name if r.parent else None)
+             for r in recs]
+    groups = -(-noisy_results[1] // 16)
+    dispatch = [("pipeline.dispatch", None),
+                ("pipeline.demod", "pipeline.dispatch"),
+                ("pipeline.upload", "pipeline.demod"),   # host recordings
+                ("pipeline.sc", "pipeline.dispatch"),
+                ("pipeline.pack", "pipeline.dispatch")]
+    resolve = [("pipeline.resolve", None),
+               ("pipeline.unpack", "pipeline.resolve")]
+    escalate = [("pipeline.escalate", "pipeline.resolve"),
+                ("pipeline.upload", "pipeline.escalate"),
+                ("pipeline.fetch", "pipeline.escalate")]
+    assert pairs == dispatch * 2 + resolve + escalate * groups + resolve
+    assert h1.request != h2.request
+    first, second = len(dispatch), 2 * len(dispatch)
+    assert {r.request for r in recs[:first]} == {h1.request}
+    assert {r.request for r in recs[first: second]} == {h2.request}
+    # the noisy batch resolves first, in its dispatch's request
+    n2 = len(resolve) + len(escalate) * groups
+    assert {r.request for r in recs[second: second + n2]} == {h2.request}
+    assert {r.request for r in recs[second + n2:]} == {h1.request}
+    for r in recs:
+        if r.parent is not None:
+            p = byid[r.parent]
+            assert p.start_ns <= r.start_ns <= r.end_ns <= p.end_ns
+
+
+def test_batch_syncs_are_the_wait_spans(traced_batches, noisy_results):
+    syncs, recs = traced_batches[3:5]
+    waits = [r for r in recs if r.wait]
+    assert syncs == len(waits)
+    resolves = [r for r in recs if r.name == "pipeline.resolve"]
+    groups = -(-noisy_results[1] // 16)
+    # on the CPU no event: an upload and a fetch a group
+    assert [r.counts["syncs"] for r in resolves] == [2 * groups, 0]
+    assert all(r.counts["sc_launches"] == r.counts["scl_launches"] == 0
+               for r in recs)          # the plain versions on the CPU
+
+
+def test_handle_unpacks_as_before(port, clean):
+    handle = port.decode_batch_async(clean[0])
+    front, packed, event = handle
+    assert isinstance(handle, tuple) and len(handle) == 3
+    assert handle.request is None and event is None
+    assert_equal(port.resolve((front, packed, event)), port.resolve(handle))

@@ -12,6 +12,8 @@ imports jax):
 import dataclasses
 import functools
 import os
+import statistics
+import warnings
 import wave
 
 import numpy as np
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from modem_tpu_torch import bits as B
+from modem_tpu_torch import profiling
 from modem_tpu_torch.card import GRAPH_CALLS, GRAPH_REPLAYS, graph_ms
 from modem_tpu_torch.decoder import Decoder
 from modem_tpu_torch.encoder import Encoder
@@ -241,6 +244,98 @@ def test_decoder_golden_on_card(cuda_device, scl_exact, channels):
     assert got.ok and got.payload == want.payload == want_payload
     for key in ("oper_mode", "call_sign", "symbol_pos", "bit_flips"):
         assert getattr(got, key) == getattr(want, key), key
+
+
+
+def _syncs_and_flags(fn):
+    """Run fn() under torch's sync debug mode: (the program's ``syncs``
+    counted over it, the warnings torch raised for synchronising
+    operations, as "file:line" sites)."""
+    torch.cuda.synchronize()
+    s0 = profiling.syncs
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    flagged = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+               if "synchronizing CUDA operation" in str(w.message)]
+    return profiling.syncs - s0, flagged
+
+
+@pytest.mark.cuda
+def test_syncs_count_every_wait_for_the_card(cuda_device):
+    """profiling.syncs against torch's own sync debug mode: on a clean
+    batch, an escalating batch (the card's recordings; and a clean one
+    from the host, whose upload waits) and a mono golden decode, the
+    counter equals the synchronising operations torch flags, plus the
+    batch's event synchronise, which the mode does not flag."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pipe = toy_pipeline(AdaptivePipeline, cuda_device, list_size=4)
+    clean = torch.as_tensor(toy_batches()[0.0]).to(cuda_device)
+    noisy = torch.as_tensor(toy_batches()[0.3]).to(cuda_device)
+    dec = Decoder(8000, device=cuda_device)
+    samples = read_golden().real.copy()
+    runs = {"clean": lambda: pipe.decode_batch(clean),
+            "escalating": lambda: pipe.decode_batch(noisy),
+            "host clean": lambda: pipe.decode_batch(toy_batches()[0.0]),
+            "decode": lambda: dec.decode(samples, channels=1)}
+    for fn in runs.values():            # builds, plans and tables first
+        fn()
+    for name, fn in runs.items():
+        syncs, flagged = _syncs_and_flags(fn)
+        events = 0 if name == "decode" else 1
+        assert syncs == len(flagged) + events, (name, syncs, flagged)
+        if name == "escalating":
+            assert pipe.last_fallbacks > 0
+    assert len(_syncs_and_flags(runs["clean"])[1]) == 0
+
+
+SLEEP_CYCLES = 10 ** 8        # ~50 ms at the H100's clock
+
+
+@pytest.mark.cuda
+def test_demod_span_times_the_front_end_as_cuda_events_do(cuda_device):
+    """The events of the span ``pipeline.demod``, on a batch of 512
+    golden recordings run alone under the profiler, within 5 % of CUDA
+    events around BatchPipeline.demod called alone (as
+    frontend_ms.batch takes it); medians of three.  A sleep queued
+    first lets the host queue the whole front end before the card
+    reaches it, on both sides, as the serving loop's queue does: the
+    profiler slows the host's launches, whose gaps would otherwise be
+    timed inside the span."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pipe = AdaptivePipeline(8000, 6, device=cuda_device)
+    x = torch.as_tensor(read_golden(), device=cuda_device)
+    x = x.expand(512, -1).contiguous()
+    pipe.decode_batch(x)
+    alone = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        pipe.sc.demod(x)
+        end.record()
+        torch.cuda.synchronize()
+        alone.append(start.elapsed_time(end))
+    profiling.clear_spans()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        for _ in range(3):
+            torch.cuda._sleep(SLEEP_CYCLES)
+            pipe.decode_batch(x)
+        torch.cuda.synchronize()
+    spans = [r.device_ms for r in profiling.spans()
+             if r.name == "pipeline.demod"]
+    assert len(spans) == 3
+    ratio = statistics.median(spans) / statistics.median(alone)
+    assert abs(ratio - 1.0) <= 0.05, (spans, alone)
 
 
 # -- kernel C' (the options of the decoder) and the probes D-F ---------------

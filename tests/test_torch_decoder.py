@@ -29,6 +29,7 @@ encoder or the frozen golden WAV):
 """
 
 import io
+import json
 import os
 import wave
 
@@ -52,7 +53,7 @@ from modem_tpu.fec.scl_np import scl_decode_np as jax_scl_np
 from modem_tpu.numerology import make_config
 from modem_tpu.parallel import toy_config as jax_toy_config
 from modem_tpu.parallel import toy_recordings
-from modem_tpu_torch import dsp, sync, track
+from modem_tpu_torch import dsp, profiling, sync, track
 from modem_tpu_torch.decoder import Decoder
 from modem_tpu_torch.fec import scl_np
 from modem_tpu_torch.fec.osd import osd_decode
@@ -398,3 +399,112 @@ def test_decoder_options():
         Decoder(8000, list_size=3, device="cpu")
     dec = Decoder(8000, scl_exact=False, device="cpu")
     assert dec.scl_exact is False and dec.estimator == "all_pairs"
+
+
+# -- spans and counters of a decode (modem_tpu_torch.profiling) ------------------
+
+def _stub_list_decode(full, plan, list_size, exact):
+    """All-zero paths in place of the wire-size list decode: every CRC
+    passes (the CRC is linear with init 0), so the call runs to its end
+    without minutes of the plain list decoder."""
+    n = full.shape[1]
+    return (torch.zeros(1, list_size, n, dtype=torch.uint8),
+            torch.zeros(1, list_size))
+
+
+@pytest.fixture(scope="module")
+def traced_decodes(port_decoder, tmp_path_factory):
+    """One mono golden decode with tracing off, then one under
+    device_trace: (syncs off, the off run's records, record_function
+    entries off, syncs on, osd_steps on, the on run's records, the Chrome
+    trace's events, the result)."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr("modem_tpu_torch.decoder.scl_decode", _stub_list_decode)
+    entered = []
+    real = torch.profiler.record_function
+    mp.setattr(torch.profiler, "record_function",
+               lambda name, *a: entered.append(name) or real(name, *a))
+    samples = _golden().real.astype(np.float32)
+    try:
+        profiling.clear_spans()
+        s0 = profiling.syncs
+        port_decoder.decode(samples, channels=1)
+        off = (profiling.syncs - s0, profiling.spans(), list(entered))
+        log_dir = tmp_path_factory.mktemp("trace")
+        s0, o0 = profiling.syncs, profiling.osd_steps
+        with profiling.device_trace(str(log_dir), device="cpu"):
+            res = port_decoder.decode(samples, channels=1)
+        on = (profiling.syncs - s0, profiling.osd_steps - o0,
+              profiling.spans())
+    finally:
+        mp.undo()
+    path = os.path.join(log_dir, os.listdir(log_dir)[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return off + on + (events, res)
+
+
+def test_decode_records_no_span_when_tracing_is_off(traced_decodes):
+    syncs_off, recs_off, entered = traced_decodes[:3]
+    assert recs_off == [] and entered == []
+    # the counter is always on, and counts what the traced call counts
+    assert syncs_off == traced_decodes[3] > 0
+
+
+def test_decode_spans_nest_in_one_request(traced_decodes):
+    recs, res = traced_decodes[5], traced_decodes[7]
+    assert res.ok and res.oper_mode == 6
+    byid = {r.id: r for r in recs}
+    pairs = {(r.name, byid[r.parent].name if r.parent else None)
+             for r in recs}
+    assert [r.name for r in recs if r.parent is None] == ["decoder.decode"]
+    for child in ("decoder.frontend", "decoder.scan", "decoder.header",
+                  "decoder.demod", "decoder.list"):
+        assert (child, "decoder.decode") in pairs
+    assert {("osd.eliminate", "decoder.header"),
+            ("osd.score", "decoder.header"),
+            ("osd.column", "osd.eliminate"),
+            ("frontend.upload", "decoder.frontend"),
+            ("frontend.taps", "decoder.frontend"),
+            ("sync.nonzero", "decoder.scan"),
+            ("sync.fine", "decoder.scan"),
+            ("decoder.upload", "decoder.demod"),
+            ("decoder.fetch", "decoder.list")} <= pairs
+    assert len({r.request for r in recs}) == 1
+    for r in recs:
+        if r.parent is not None:
+            p = byid[r.parent]
+            assert p.start_ns <= r.start_ns <= r.end_ns <= p.end_ns, r.name
+        assert r.events is None and r.device_ms is None   # the CPU
+
+
+def test_decode_counts_a_sync_a_wait_and_255_osd_steps_a_call(
+        traced_decodes):
+    syncs, steps, recs = traced_decodes[3:6]
+    waits = [r for r in recs if r.wait]
+    assert syncs == len(waits)
+    assert all(not r.counts["syncs"] for r in waits)
+    top = recs[0]
+    assert top.counts["syncs"] == syncs and top.counts["osd_steps"] == steps
+    osd_calls = sum(r.name == "osd.eliminate" for r in recs)
+    assert osd_calls >= 1 and steps == 255 * osd_calls
+    assert sum(r.name == "osd.column" for r in recs) == steps
+
+
+def test_device_trace_holds_every_span_around_its_children(traced_decodes):
+    recs, events = traced_decodes[5], traced_decodes[6]
+    ranges: dict = {}
+    for e in sorted((e for e in events if e.get("ph") == "X"),
+                    key=lambda e: e["ts"]):
+        ranges.setdefault(e["name"], []).append((e["ts"],
+                                                 e["ts"] + e["dur"]))
+    seen: dict = {}
+    where = {}
+    for r in recs:              # records in the order they opened
+        k = seen[r.name] = seen.get(r.name, -1) + 1
+        assert k < len(ranges.get(r.name, [])), r.name
+        where[r.id] = ranges[r.name][k]
+    for r in recs:
+        if r.parent is not None:
+            (ps, pe), (cs, ce) = where[r.parent], where[r.id]
+            assert ps <= cs and ce <= pe, r.name

@@ -128,3 +128,63 @@ def test_shadow_f64_sets_and_restores_the_default_dtype():
     with jdebug.shadow_f64():
         assert jnp.asarray(0.5).dtype == jnp.float64
     assert jax.config.jax_enable_x64 == old
+
+
+def test_spans_are_recorded_exactly_while_the_profiler_records():
+    profiling.clear_spans()
+    s0 = profiling.syncs
+    with profiling.span("outer") as rec:
+        assert rec is None
+        with profiling.wait("outer.wait") as w:
+            assert w is None
+    assert profiling.spans() == [] and profiling.syncs == s0 + 1
+    with torch.profiler.profile():
+        assert profiling.tracing()
+        with profiling.span("outer") as outer:
+            with profiling.span("inner", device="cpu") as inner:
+                with profiling.wait("inner.wait"):
+                    pass
+        with profiling.span("again", request=outer.request) as again:
+            pass
+        with profiling.span("next"):
+            pass
+    assert not profiling.tracing()
+    recs = profiling.spans()
+    assert [r.name for r in recs] == ["outer", "inner", "inner.wait",
+                                      "again", "next"]
+    assert [r.parent for r in recs] == [None, outer.id, inner.id, None,
+                                        None]
+    assert [r.wait for r in recs] == [False, False, True, False, False]
+    assert [r.request for r in recs[:4]] == [outer.request] * 4
+    assert recs[4].request != outer.request
+    assert outer.counts["syncs"] == inner.counts["syncs"] == 1
+    assert recs[2].counts["syncs"] == 0 and again.counts["syncs"] == 0
+    assert inner.events is None and inner.device_ms is None
+    assert outer.host_ms >= inner.host_ms >= 0
+    profiling.clear_spans()
+    assert profiling.spans() == []
+
+
+def test_an_upload_waits_only_where_the_data_is_not_yet_there():
+    s0 = profiling.syncs
+    for data, device in (([1, 2], "cpu"), (np.ones(2), "cpu"),
+                         (torch.ones(2), "cuda")):
+        with profiling.upload("up", data, device):
+            pass
+    with profiling.upload("up", torch.ones(2), "cpu"):
+        pass
+    assert profiling.syncs == s0 + 3
+
+
+def test_stage_timer_stages_are_spans():
+    timer = profiling.StageTimer()
+    profiling.clear_spans()
+    with torch.profiler.profile():
+        with timer("sync") as stage:
+            with timer("demod") as inner:
+                inner.out = torch.ones(2)
+            stage.out = np.zeros(2)
+    recs = profiling.spans()
+    assert [r.name for r in recs] == ["sync", "demod"]
+    assert recs[1].parent == recs[0].id
+    assert dict(timer.counts) == {"sync": 1, "demod": 1}

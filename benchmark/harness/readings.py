@@ -1,15 +1,16 @@
-"""The readings that a batch cell's correctness limits are set from.
+"""The readings that a cell's correctness limits are set from.
 
     python3 benchmark/harness/readings.py --workload <cell> \
         --seeds <n> ... [--control-seeds <n> ...] [--out <file.json>]
 
-For each ``--seeds`` seed: the cell's pool made from it, every pool
-batch decoded once through the window's own calls
-(``decode_batch_async`` then ``resolve``), the rows the run would keep
-drawn as a run draws them, the program's state freed, and the numbers
-of ``harness.check`` against the plain reference: the lower readings.
-For each ``--control-seeds`` seed: the reference itself computed with
-every stage's output rounded to bfloat16 (the control) in the program's
+For each ``--seeds`` seed: the cell's pool made from it, decoded once
+through the window's own calls (a batch cell: every pool batch through
+``decode_batch_async`` then ``resolve``, and the rows a run keeps drawn
+as a run draws them; an interactive or a recording cell: the recordings
+a run compares, drawn from the seed), the program's state freed, and the
+numbers compared against the plain reference: the lower readings.  For
+each ``--control-seeds`` seed: the reference itself computed with every
+stage's output rounded to bfloat16 (the control) in the program's
 place, against the reference: the upper readings.  The benchmark's own
 runs do not run this; it needs the card for the cells as committed and
 runs on the CPU for the tests' toy cells (``device``).
@@ -31,7 +32,8 @@ if __name__ == "__main__":
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from harness import batch, check, common, inputs, interactive  # noqa: E402
+from harness import (batch, check, common, inputs, interactive,  # noqa: E402
+                     recording)
 from reference import modem as M  # noqa: E402
 from reference.frontend import to_bf16  # noqa: E402
 
@@ -41,6 +43,8 @@ def readings(cell: dict, seed: int, device, control: bool = False) -> dict:
     (control=False) or the bfloat16 control's, against the reference."""
     if cell["params"]["loop"] == "interactive":
         return interactive_readings(cell, seed, device, control)
+    if cell["params"]["loop"] == "recording":
+        return recording_readings(cell, seed, device, control)
     params = cell["params"]
     cfg = M.config_of(cell["config"]["modem"])
     device = torch.device(device)
@@ -97,6 +101,39 @@ def interactive_readings(cell: dict, seed: int, device, control: bool):
         refs = dict(zip(rows, interactive.reference_answers(
             cfg, cell["config"], recs, device)))
     return interactive.compare(kept, refs)
+
+
+def recording_readings(cell: dict, seed: int, device, control: bool):
+    """readings() of a recording cell: each recording drawn from the
+    seed decoded once by ``decode_recording_auto`` (or by the
+    control)."""
+    params = cell["params"]
+    cfg = M.config_of(cell["config"]["modem"])
+    device = torch.device(device)
+    pool, sent = recording.hour_pool(cfg, params, seed, device)
+    rows = [int(j) for j in recording.sample(params, seed)]
+    if control:
+        with torch.no_grad():
+            low = recording.reference_answers(
+                cfg, cell["config"], [pool[j] for j in rows], device,
+                q=to_bf16)
+        kept = {j: [_as_decode_all(a)] for j, a in zip(rows, low)}
+    else:
+        kept = {j: [] for j in rows}
+        recording.calls_loop(pool, sent, cfg.rate, params, device, rows,
+                             keep=lambda j, got: kept[j].append(got))
+        recording.free_program()
+    with torch.no_grad():
+        refs = dict(zip(rows, recording.reference_answers(
+            cfg, cell["config"], [pool[j] for j in rows], device)))
+    return recording.compare(kept, refs)
+
+
+def _as_decode_all(frames):
+    """A reference answer in the form of decode_recording_auto's."""
+    return [dict(pos=f["pos"], mode=f["mode"], call_sign=f["call_sign"],
+                 ok=f["ok"], payload=f.get("payload", b""),
+                 flips=f.get("flips"), snr=f.get("snr")) for f in frames]
 
 
 def _as_program(a):

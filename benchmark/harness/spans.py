@@ -3,7 +3,8 @@ counters (``modem_tpu_torch.profiling``), recorded while the traced
 slice ran under ``torch.profiler``.
 
 Every reader divides by the number of request spans of the slice (the
-batches' ``pipeline.dispatch`` or the calls' ``decoder.decode``) and
+batches' ``pipeline.dispatch``, the calls' ``decoder.decode``, or the
+recording calls' ``decode_all.scan``) and
 reads nothing where the program recorded no span: on the CPU, where the
 harness does not profile, and in a program without spans.
 """
@@ -66,3 +67,23 @@ def call_host_ms(name: str):
     recs = records()
     return per_request((r.host_ms for r in named(recs, name)),
                        named(recs, "decoder.decode"))
+
+
+DECODE_ALL = ("decode_all.scan", "decode_all.headers", "decode_all.windows",
+              "decode_all.payload")
+
+
+def recording_host_ms(*names):
+    """Host ms of every span of ``names``, a ``decode_recording_auto``
+    call (one ``decode_all.scan`` a call)."""
+    recs = records()
+    return per_request((r.host_ms for n in names for r in named(recs, n)),
+                       named(recs, "decode_all.scan"))
+
+
+def recording_counter(key: str):
+    """A counter's delta over the ``decode_all.*`` stages, a call."""
+    recs = records()
+    return per_request((r.counts[key] for n in DECODE_ALL
+                        for r in named(recs, n)),
+                       named(recs, "decode_all.scan"))

@@ -85,16 +85,21 @@ def analytic(x: torch.Tensor) -> torch.Tensor:
     return torch.fft.ifft(torch.fft.fft(x.to(torch.float64)) * h)
 
 
+def impair_real(x: torch.Tensor, rate: int, cfo_hz: float = 234.567,
+                sfo_ppm: float = 147.0, spread: int = 10) -> torch.Tensor:
+    """The chain's multipath, CFO and SFO on real mono rows [B, T], as
+    the demonstration's tools treat a one-channel WAV: each stage keeps
+    the real part; the CFO shifts the analytic signal.  No noise."""
+    y = multipath(x.to(torch.complex128), spread).real
+    y = cfo(analytic(y), cfo_hz, rate).real
+    return sfo(y.to(torch.complex128), sfo_ppm).real
+
+
 def chain_real(x: torch.Tensor, rate: int, awgn_db: float,
                gen: torch.Generator, cfo_hz: float = 234.567,
                sfo_ppm: float = 147.0, spread: int = 10) -> torch.Tensor:
-    """The chain on real mono rows [B, T], as the demonstration's tools
-    treat a one-channel WAV: each stage keeps the real part; the CFO
-    shifts the analytic signal; the noise is real, of the stated total
-    power."""
-    y = multipath(x.to(torch.complex128), spread).real
-    y = cfo(analytic(y), cfo_hz, rate).real
-    y = sfo(y.to(torch.complex128), sfo_ppm).real
+    """:func:`impair_real`, then real noise of the stated total power."""
+    y = impair_real(x, rate, cfo_hz, sfo_ppm, spread)
     sigma = 10.0 ** (awgn_db / 20.0)
     noise = torch.randn(y.shape, generator=gen, device=y.device,
                         dtype=torch.float64)

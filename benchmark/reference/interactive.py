@@ -64,6 +64,31 @@ def analytic(x: torch.Tensor, rate: int) -> torch.Tensor:
     return torch.complex(re, im)
 
 
+def schmitt_events(t: np.ndarray, ph: np.ndarray, lo: float, hi: float,
+                   match_del: int, max_edges: int) -> list:
+    """The Schmitt trigger over the timing metric ``t`` (on above ``hi``,
+    off below ``lo`` or at NaN, else as before; off before the first
+    sample) and, at each of its first ``max_edges`` falling edges, the
+    first maximum of the run it ends and the phase ``match_del`` samples
+    before that (index 0 at the start): [(edge, n_max, phase)].
+
+    No per-sample loop: the state at n is on exactly when the last
+    sample up to n above ``hi`` comes after the last one below ``lo``;
+    the k-th falling edge ends the run of the k-th rising edge."""
+    idx = np.arange(t.shape[0])
+    last_hi = np.maximum.accumulate(np.where(t > hi, idx, -1))
+    last_lo = np.maximum.accumulate(np.where(~(t >= lo), idx, -1))
+    on = last_hi > last_lo
+    before = np.concatenate([[False], on[:-1]])
+    rises = np.flatnonzero(on & ~before)
+    falls = np.flatnonzero(before & ~on)[:max_edges]
+    out = []
+    for r, f in zip(rises, falls):
+        n_max = int(r + np.argmax(t[r:f]))
+        out.append((int(f), n_max, float(ph[max(n_max - match_del, 0)])))
+    return out
+
+
 class Receiver:
     """The interactive decoder of one rate on ``device``."""
 
@@ -86,10 +111,11 @@ class Receiver:
         self.mls1_prev = torch.cat([seq.new_ones(1), seq[:-1]])
 
     # -- the scan ---------------------------------------------------------
-    def events(self, x: torch.Tensor, q):
-        """(edge, n_max, phase) of the first MAX_EDGES falling edges."""
+    def metric(self, x: torch.Tensor, q):
+        """The full-rate timing metric t[n] and the correlation's phase
+        at every n, host numpy (f32)."""
         fe = self.sync
-        L, md = fe.L, fe.match_del
+        L = fe.L
         b = x[2 * L:]
         a = x[L: L + b.shape[0]]
         prod, pb = q(a * b.conj()), q(abs2(b))
@@ -99,30 +125,22 @@ class Receiver:
         r = torch.clamp(0.5 * power, min=1e-4 * L)
         t = q(window_sum((p_re ** 2 + p_im ** 2) / (r * r), fe.match_len))
         ph = torch.atan2(p_im, p_re)
-        t = t.cpu().numpy()
-        ph = ph.cpu().numpy()
-        lo, hi = 0.17 * fe.match_len, 0.19 * fe.match_len
-        out, state, vmax, imax = [], False, -math.inf, 0
-        for n in range(t.shape[0]):
-            v = t[n]
-            new = bool(v > hi or (v >= lo and state))
-            if new and not state:
-                vmax, imax = -math.inf, n
-            if new and v > vmax:
-                vmax, imax = v, n
-            if state and not new:
-                out.append((n, imax, float(ph[max(imax - md, 0)])))
-                if len(out) >= MAX_EDGES:
-                    break
-            state = new
-        return out
+        return t.cpu().numpy(), ph.cpu().numpy()
 
-    def candidates(self, x: torch.Tensor, q):
+    def events(self, x: torch.Tensor, q, max_edges: int = MAX_EDGES):
+        """(edge, n_max, phase) of the first ``max_edges`` falling
+        edges."""
+        fe = self.sync
+        t, ph = self.metric(x, q)
+        return schmitt_events(t, ph, 0.17 * fe.match_len,
+                              0.19 * fe.match_len, fe.match_del, max_edges)
+
+    def candidates(self, x: torch.Tensor, q, max_edges: int = MAX_EDGES):
         """Candidates in time order: (ok, p0, cfo_rad)."""
         fe, cfg = self.sync, self.sync.cfg
         L = fe.L
         found = []
-        for edge, n_max, ph in self.events(x, q):
+        for edge, n_max, ph in self.events(x, q, max_edges):
             index_max = min(edge - 1 - n_max + fe.match_del,
                             L + cfg.guard_len + fe.match_del)
             found.append(((edge - 1) - index_max, ph / L))

@@ -12,16 +12,22 @@ limits (``checks``), which also end standard error.  Exits non-zero,
 printing no result, without CUDA or with fewer cards than the cell
 asks for, and if jax, jaxlib, flax or the JAX package is loaded once the
 window has closed.
+
+A cell's traffic mix names its loop (``"loop": "<name>"``): the module
+``benchmark/harness/<name>.py``, imported as ``harness.<name>``, whose
+``run`` drives the program.  A name that is not plain
+(``[a-z][a-z0-9_]*``) or has no such file stops the run before any work.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib
+import importlib.util
 import json
 import math
 import os
 import pathlib
+import re
 import sys
 import time
 
@@ -34,12 +40,32 @@ from harness import common  # noqa: E402
 
 T_START = common.process_start()
 FORBIDDEN = ("jax", "jaxlib", "flax", "modem_tpu")
-LOOPS = {"batch": "harness.batch", "interactive": "harness.interactive"}
+LOOP_NAME = re.compile(r"[a-z][a-z0-9_]*")
 
 
 def forbidden_modules() -> list:
     return sorted(m for m in list(sys.modules)
                   if m.split(".")[0] in FORBIDDEN)
+
+
+def loop_module(name, root: pathlib.Path):
+    """The module of the loop ``name``: ``harness.<name>``, from
+    ``root``'s benchmark/harness/; None for a name that is not plain, has
+    no file there, or whose module has no ``run``."""
+    if not isinstance(name, str) or not LOOP_NAME.fullmatch(name):
+        return None
+    path = root / "benchmark" / "harness" / f"{name}.py"
+    if not path.is_file():
+        return None
+    if (BENCH / "harness" / f"{name}.py").is_file():
+        mod = importlib.import_module(f"harness.{name}")
+    else:       # a loop that only a copy of the benchmark has (CPU tests)
+        spec = importlib.util.spec_from_file_location(f"harness.{name}",
+                                                      path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod
+        spec.loader.exec_module(mod)
+    return mod if callable(getattr(mod, "run", None)) else None
 
 
 def parse(argv):
@@ -62,6 +88,12 @@ def main(argv=None, device: str = "cuda", root: pathlib.Path = ROOT) -> int:
     common.note("torch imported", time.time() - T_START)
     manifest = common.load_json(root / "BENCHMARK.json")
     cell = common.cell_of(manifest, args.workload, root)
+    loop = loop_module(cell["params"].get("loop"), root)
+    if loop is None:
+        print(f"benchmark: {args.workload}: no loop "
+              f"{cell['params'].get('loop')!r} in benchmark/harness/",
+              file=sys.stderr)
+        return 2
     chips = cell["entry"]["chips"]
     found = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if device == "cuda" and found < chips:
@@ -72,7 +104,6 @@ def main(argv=None, device: str = "cuda", root: pathlib.Path = ROOT) -> int:
     torch.backends.cudnn.allow_tf32 = False
     for m in cell["per_layer"]:
         m["_read"] = common.reader(root, m["name"])
-    loop = importlib.import_module(LOOPS[cell["params"]["loop"]])
     out = loop.run(cell, args.seed, args.seconds, bool(args.trace), device,
                    T_START, root)
 

@@ -43,7 +43,8 @@ def test_the_run_loads_no_jax():
             "sys.argv = ['run.py']\n"
             "sys.path.insert(0, 'benchmark')\n"
             "import run\n"
-            "from harness import batch, check, inputs, readings, trace\n"
+            "from harness import (batch, check, inputs, readings, recording,"
+            " trace)\n"
             "import modem_tpu_torch.pipeline\n"
             "bad = run.forbidden_modules()\n"
             "assert not bad, bad\n"

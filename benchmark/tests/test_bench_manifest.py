@@ -113,3 +113,13 @@ def test_run_budget_fits_with_full_cells():
     runs = 2 + 14 * n
     total = runs * (MANIFEST["run_seconds"] + 60) + n * 2 * 90 + 1200
     assert total <= 43200
+
+
+@pytest.mark.parametrize("mix", sorted(
+    p.stem for p in (REPO / "benchmark" / "traffic").glob("*.json")))
+def test_every_traffic_names_a_loop_of_the_harness(mix):
+    params = json.loads((REPO / "benchmark" / "traffic" /
+                         f"{mix}.json").read_text())
+    loop = params["loop"]
+    assert re.fullmatch(r"[a-z][a-z0-9_]*", loop), loop
+    assert (REPO / "benchmark" / "harness" / f"{loop}.py").is_file(), loop

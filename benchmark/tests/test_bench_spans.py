@@ -16,6 +16,8 @@ BATCH = ("demod_ms.batch", "wait_ms.batch", "syncs.batch",
          "B_launches.batch")
 CALL = ("scan_ms.interactive", "header_ms.interactive",
         "osd_steps.interactive", "syncs.interactive")
+RECORDING = ("scan_ms.recording", "headers_ms.recording",
+             "payload_ms.recording", "syncs.recording")
 RUN = types.SimpleNamespace(cell={}, counters={}, spans={}, trace=None)
 
 
@@ -75,6 +77,33 @@ def two_calls():
         span(7, "decoder.header", 4, request=2, ms=150.0)]
 
 
+def two_recording_calls():
+    """Two decode_recording_auto calls: their four stages each, the
+    payload's batch spans and waits nested inside (counted once, in the
+    stage)."""
+    recs = []
+    for c, (scan, hdr, win, pay, syncs) in enumerate(
+            [(90.0, 100.0, 4.0, 12.0, (30, 256, 3, 4)),
+             (96.0, 110.0, 6.0, 14.0, (30, 256, 3, 6))]):
+        base = 10 * c
+        recs += [
+            span(base + 1, "decode_all.scan", request=c + 1, ms=scan,
+                 syncs=syncs[0]),
+            span(base + 2, "ingest.upload", base + 1, request=c + 1,
+                 wait=True, syncs=1),
+            span(base + 3, "decode_all.headers", request=c + 1, ms=hdr,
+                 syncs=syncs[1], osd_steps=255),
+            span(base + 4, "decode_all.windows", request=c + 1, ms=win,
+                 syncs=syncs[2]),
+            span(base + 5, "decode_all.payload", request=c + 1, ms=pay,
+                 syncs=syncs[3], sc_launches=1),
+            span(base + 6, "pipeline.dispatch", base + 5, request=c + 1,
+                 ms=3.0, syncs=1),
+            span(base + 7, "pipeline.resolve", base + 5, request=c + 1,
+                 ms=5.0, syncs=syncs[3] - 1)]
+    return recs
+
+
 WANT = {"demod_ms.batch": 13.0,          # (12 + 14) / 2
         "wait_ms.batch": 5.0,            # (2 + 1 + 2 x 3.5) / 2
         "syncs.batch": 3.5,              # (0 + 1 + 1 + 5) / 2
@@ -82,20 +111,39 @@ WANT = {"demod_ms.batch": 13.0,          # (12 + 14) / 2
         "scan_ms.interactive": 7.0,
         "header_ms.interactive": 150.0,  # (70 + 80 + 150) / 2
         "osd_steps.interactive": 510.0,
-        "syncs.interactive": 428.0}
+        "syncs.interactive": 428.0,
+        "scan_ms.recording": 93.0,       # (90 + 96) / 2
+        "headers_ms.recording": 105.0,
+        "payload_ms.recording": 18.0,    # (4 + 12 + 6 + 14) / 2
+        "syncs.recording": 294.0}        # (293 + 295) / 2
 
 
-@pytest.mark.parametrize("name", BATCH + CALL)
+def records_for(name):
+    if name in BATCH:
+        return two_batches()
+    return two_calls() if name in CALL else two_recording_calls()
+
+
+@pytest.mark.parametrize("name", BATCH + CALL + RECORDING)
 def test_each_reader_divides_by_the_slice_requests(name, monkeypatch):
-    recs = two_batches() if name in BATCH else two_calls()
+    recs = records_for(name)
     monkeypatch.setattr(profiling, "spans", lambda: list(recs))
     assert common.reader(REPO, name)(RUN) == pytest.approx(WANT[name])
 
 
-@pytest.mark.parametrize("name", BATCH + CALL)
+@pytest.mark.parametrize("name", BATCH + CALL + RECORDING)
 def test_each_reader_reads_nothing_without_records(name, monkeypatch):
     read = common.reader(REPO, name)
     monkeypatch.setattr(profiling, "spans", lambda: [])
     assert read(RUN) is None
     monkeypatch.delattr(profiling, "spans")       # a program without spans
     assert read(RUN) is None
+
+
+@pytest.mark.parametrize("name", ["idle_pct.interactive",
+                                  "idle_pct.recording"])
+def test_the_idle_share_is_the_traces(name):
+    read = common.reader(REPO, name)
+    trace = types.SimpleNamespace(idle_pct=87.5)
+    assert read(types.SimpleNamespace(trace=trace)) == 87.5
+    assert read(types.SimpleNamespace(trace=None)) is None

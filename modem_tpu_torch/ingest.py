@@ -194,7 +194,8 @@ class StreamBuffer:
                 raise RuntimeError(f"samples [{a}, {self.origin}) of the "
                                    "stream were retired")
             out[i, a - s0: b - s0] = self.data[a - self.origin: b - self.origin]
-        return torch.from_numpy(out).to(device)
+        with upload("stream.windows", out, device):
+            return torch.from_numpy(out).to(device)
 
 
 def front_lead(dc_window: int, taps: int) -> int:

@@ -24,6 +24,12 @@ start; so the bytes copied a feed grow with the feed, and the samples
 of a window do not depend on what has been retired.  The buffer retires
 behind a watermark that protects the oldest pending frame's windows.
 
+While ``torch.profiler`` records, each ``feed`` and ``finish`` is a
+request span (``stream.feed`` / ``stream.finish``) holding
+``stream.scan`` (the chunk walk), ``stream.fine`` (the fine stage),
+``stream.headers`` and ``stream.payload``; each window's copy to the
+device is a ``profiling.upload``, so ``profiling.syncs`` counts it.
+
 Inputs: integer PCM (int16 / uint8; mono [n], or stereo [n, 2] I/Q) or
 float analytic ([n, 2] I/Q or complex [n]).  Float mono raises
 ``ValueError``: quantise it to int16, the wire format.
@@ -42,6 +48,7 @@ import numpy as np
 from . import bits as B
 from .ingest import StreamBuffer
 from .numerology import MODES, ModemConfig
+from .profiling import span
 from .sync import _BLK
 
 
@@ -234,9 +241,12 @@ class StreamDecoder:
 
     def _stages(self) -> list:
         emitted: list = []
-        self._finalize_events()
-        self._decode_headers(emitted)
-        self._decode_payloads(emitted)
+        with span("stream.fine"):
+            self._finalize_events()
+        with span("stream.headers"):
+            self._decode_headers(emitted)
+        with span("stream.payload"):
+            self._decode_payloads(emitted)
         emitted.sort(key=lambda f: f["pos"])
         return emitted
 
@@ -248,12 +258,15 @@ class StreamDecoder:
         call_sign, ok, payload, flips, snr, status}, in time order."""
         if self._eos is not None:
             raise RuntimeError("stream already finished")
-        self.buf.append(self._norm(samples))
-        self.peak_buffered = max(self.peak_buffered, self.buf.data.shape[0])
-        while (self.chunks + 1) * self.c + 2 * self.L <= self.buf.end:
-            self._scan_chunk()
-        emitted = self._stages()
-        self._retire()
+        with span("stream.feed"):
+            self.buf.append(self._norm(samples))
+            self.peak_buffered = max(self.peak_buffered,
+                                     self.buf.data.shape[0])
+            with span("stream.scan"):
+                while (self.chunks + 1) * self.c + 2 * self.L <= self.buf.end:
+                    self._scan_chunk()
+            emitted = self._stages()
+            self._retire()
         return emitted
 
     def finish(self) -> list:
@@ -261,7 +274,9 @@ class StreamDecoder:
         complete every pending stage, and return the remaining frames."""
         if self._eos is not None:
             return []
-        self._eos = self.buf.end
-        while self.chunks * self.c < self._eos - 2 * self.L:
-            self._scan_chunk()
-        return self._stages()
+        with span("stream.finish"):
+            self._eos = self.buf.end
+            with span("stream.scan"):
+                while self.chunks * self.c < self._eos - 2 * self.L:
+                    self._scan_chunk()
+            return self._stages()

@@ -67,7 +67,11 @@ Phases:
      kernel B and with kernel C, and one recording of each of the 8 modes
      (the port's encoder, call sign N0CALL, 1 s of silence either side),
      each decoded byte-exact with the right mode and call sign; B and C
-     launched once per decode; then the decode's wall time split into
+     launched once per decode, the OSD elimination kernel once a header
+     hypothesis (its launches equal to the osd_decode calls, 255
+     profiling.osd_steps each, on every drive of phases 9, 13 and 14:
+     no header decode on the card takes the plain loop); then the
+     decode's wall time split into
      scan, header (demod + OSD), payload demod and list decode;
  10. kernel C', make_decoder's options at wire size, each driven with
      every launch count at 0 just before and read just after:
@@ -110,8 +114,8 @@ Phases:
      frames, 8 of each mode 6-13 in turn with 0.5 s gaps, seeded call
      signs, exact (B on every frame) and adaptive, 64/64 right and the
      two lists equal but for snr; each run's wall ms split into scan,
-     headers, windows and payload, the chunks, A's and B's launches and
-     the peak device memory; every mode's B tier; A at the hour's
+     headers, windows and payload, the chunks, A's, B's and the OSD
+     kernel's launches and the peak device memory; every mode's B tier; A at the hour's
      [12, 65536] and B at the mode-6 group's [8, 65536] against their
      plain versions; the three golden WAVs read in wire dtype and
      decoded under "auto" (and by Decoder(mls_convention="auto")), a
@@ -133,8 +137,16 @@ Phases:
      compare), decode-all and decode-all --adaptive on a two-frame WAV,
      decode-stream PREFIX - through a pipe 1 s at a time with the first
      payload file written while stdin is open; then the same decodes
-     through cli.main in this process for the launches of A and B, and
-     A and B at decode-all's [2, 65536] against their plain versions;
+     through cli.main in this process for the launches of A, B and the
+     OSD kernel, and A and B at decode-all's [2, 65536] against their
+     plain versions; then the OSD header's elimination kernel
+     (csrc/osd_eliminate.cu) on card tensors at 1, 12 and 128 headers
+     (the Decoder's, decode-all's hour, HEADER_BATCH): byte for byte its
+     plain loop's (kernels.osd_eliminate.osd_eliminate_reference) on the
+     BCH generator in seeded reliability orders and on a rank-deficient
+     matrix, its ms (as issued and from a CUDA graph) against the loop's
+     on the card, and a whole osd_decode call's wall ms with each; its
+     kernels-line entry counts the launches of phases 9, 13 and 14;
  15. multi-device (modem_tpu_torch.parallel; each drive with the counts
      at 0 just before): an NCCL group of one rank in this process (a
      FileStore group; make_mesh must refuse a CPU device on it):
@@ -233,6 +245,11 @@ ENVELOPE_SEED = 100          # recording i's AWGN: default_rng(100 + i)
 ENVELOPE_SPREAD = 10
 ENVELOPE_CFO_HZ = 234.567
 ENVELOPE_SFO_PPM = 147.0
+OSD_BATCHES = (1, 12, 128)   # headers a launch: the Decoder's hypothesis,
+                             # decode-all's hour, HEADER_BATCH
+OSD_REPS = 200               # host-issued launches a kernel timing
+OSD_SEED = 21
+OSD_PATHS: dict = {}         # OSD kernel launches of each drive, by label
 
 
 def check(cond, msg: str) -> None:
@@ -389,6 +406,91 @@ def kernel_bound(sched, batch: int, lsz: int, exact: bool = True) -> dict:
     return roofline(nbytes, batch * (lsz * lane_ops + fork_ops))
 
 
+def osd_launches(label: str) -> int:
+    """The OSD elimination kernel's launches since the counts were reset,
+    held to the ``osd_decode`` calls (``profiling.osd_steps`` adds 255 a
+    call on either device): every header decode of the drive went through
+    the kernel.  Recorded in OSD_PATHS under ``label``."""
+    from modem_tpu_torch import profiling
+    from modem_tpu_torch.kernels.osd_eliminate import osd_eliminate
+    n = osd_eliminate.launches
+    check(n > 0 and profiling.osd_steps == 255 * n,
+          f"{label}: {n} OSD kernel launches for {profiling.osd_steps} "
+          "osd_steps (255 an osd_decode call)")
+    OSD_PATHS[label] = n
+    return n
+
+
+def osd_entry(dev) -> dict:
+    """The OSD header's elimination kernel on card tensors at OSD_BATCHES
+    headers: byte for byte its plain loop's on the same inputs (the BCH
+    generator in seeded reliability orders, and a rank-deficient matrix
+    with repeated rows and a zero column, whose columns past the rank find
+    no pivot), then timed in turns with the loop on the card, as the host
+    issues it and from a CUDA graph; a whole ``osd_decode`` call's wall ms
+    with the kernel and with the loop patched in.  Returns its
+    kernels-line entry, with the launches OSD_PATHS counted on the main
+    paths."""
+    from modem_tpu_torch.card import graph_ms
+    from modem_tpu_torch.fec import bch
+    from modem_tpu_torch.fec import osd as osd_mod
+    from modem_tpu_torch.kernels.osd_eliminate import (K, N, osd_eliminate,
+                                                       osd_eliminate_reference)
+
+    def plain(g, perm):
+        return osd_eliminate_reference(g[:, perm].permute(1, 0, 2))
+
+    rng = np.random.default_rng(OSD_SEED)
+    low = rng.integers(0, 2, (40, N), dtype=np.uint8)
+    deficient = np.concatenate([low, low[: K - 40]])
+    deficient[:, 7] = 0
+    gens = {"bch": torch.from_numpy(
+                bch.generator_matrix().astype(np.uint8)).to(dev),
+            "rank-deficient": torch.from_numpy(deficient).to(dev)}
+    g = gens["bch"]
+    by_batch = {}
+    for batch in OSD_BATCHES:
+        soft = torch.from_numpy(rng.integers(-128, 128, (batch, N))
+                                ).float().to(dev)
+        perm = torch.argsort(-soft.abs(), dim=1, stable=True)
+        for name, gen in gens.items():
+            red, piv = osd_eliminate(gen, perm)
+            want_red, want_piv = plain(gen, perm)
+            check(torch.equal(red, want_red) and torch.equal(piv, want_piv),
+                  f"osd_eliminate [{batch}] on the {name} matrix differs "
+                  "from its plain loop")
+        ms, plain_ms = kernel_vs_plain_ms(lambda: osd_eliminate(g, perm),
+                                          lambda: plain(g, perm), OSD_REPS)
+        graph, _ = graph_ms(lambda: osd_eliminate(g, perm))
+        decode_ms = wall_ms(lambda: osd_mod.osd_decode(soft), 5)
+        osd_mod.osd_eliminate = plain
+        try:
+            decode_plain_ms = wall_ms(lambda: osd_mod.osd_decode(soft), 5)
+        finally:
+            osd_mod.osd_eliminate = osd_eliminate
+        # g once (the blocks after the first read it from L2), perm, the
+        # reduced matrices and the pivots
+        bound = roofline(K * N + batch * (N * 8 + K * N + K * 8), 0)
+        by_batch[batch] = {"ms": ms, "graph_ms": graph, "plain_ms": plain_ms,
+                           **bound, "osd_decode_ms": decode_ms,
+                           "osd_decode_plain_ms": decode_plain_ms}
+        print(f"osd_eliminate [{batch}]: byte-equal to its plain loop on the "
+              f"BCH generator and a rank-deficient matrix; {ms:.4f} ms a "
+              f"launch as the host issues it, {graph:.4f} from a CUDA graph, "
+              f"plain loop {plain_ms:.3f} ms; bound {bound['bound_ms']:.6f} "
+              f"ms ({bound['bound_ms'] / graph * 100:.3f} %); osd_decode "
+              f"{decode_ms:.3f} ms (plain loop {decode_plain_ms:.3f})")
+    print(f"osd_eliminate launches on the main paths: {OSD_PATHS}")
+    top = by_batch[OSD_BATCHES[-1]]
+    return {"name": "osd_eliminate", "route": "cuda",
+            "source": "modem_tpu_torch/csrc/osd_eliminate.cu",
+            "replaces": "modem_tpu/fec/osd.py:84",
+            "launches": sum(OSD_PATHS.values()),
+            "launches_by_path": dict(OSD_PATHS), "max_abs_err": 0,
+            **top, "library_ms": None, "shape": [OSD_BATCHES[-1], K, N],
+            "by_batch": {str(b): v for b, v in by_batch.items()}}
+
+
 def wall_ms(fn, reps: int) -> float:
     """Median host milliseconds of fn() over reps calls, each ending in a
     device synchronise."""
@@ -510,6 +612,7 @@ def decode_all(dev, reset_counts, hour_samples: int = HOUR_SAMPLES,
         stats["launches_A"] = sc_decode.launches
         stats["launches_B"] = scl_decode.launches
         stats["launches_C"] = scl_decode.fast_launches
+        stats["launches_osd"] = osd_launches(f"decode-all {label}")
         stats["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
         summary[label] = stats
         print(f"decode-all {label}: {len(out)} frames; wall {stats['wall_ms']:.1f}"
@@ -517,8 +620,8 @@ def decode_all(dev, reset_counts, hour_samples: int = HOUR_SAMPLES,
               f"headers {stats['headers_ms']:.1f}, windows "
               f"{stats['windows_ms']:.1f}, payload {stats['payload_ms']:.1f});"
               f" launches A {stats['launches_A']}, B {stats['launches_B']}, "
-              f"C {stats['launches_C']}; peak device memory "
-              f"{stats['peak_mib']:.0f} MiB")
+              f"C {stats['launches_C']}, OSD {stats['launches_osd']}; peak "
+              f"device memory {stats['peak_mib']:.0f} MiB")
         check(stats["launches_C"] == 0, f"{label} launched kernel C")
         return out
 
@@ -791,6 +894,7 @@ def stream_and_cli(dev, reset_counts, hour, hour_ref, hour_payloads):
             finish_ms=finish_ms, chunks=sd.chunks,
             launches_A=sc_decode.launches, launches_B=scl_decode.launches,
             launches_C=scl_decode.fast_launches,
+            launches_osd=osd_launches(f"stream {label}"),
             peak_buffered=sd.peak_buffered,
             buffer_bound=buffer_bound(sd, cfg.frame_samples, step),
             peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
@@ -804,7 +908,8 @@ def stream_and_cli(dev, reset_counts, hour, hour_ref, hour_payloads):
               f"{stats['longest_feed_ms']:.3f}, finish {finish_ms:.3f}; "
               f"emitting feeds (ms) {emit_ms}; {sd.chunks} chunks; "
               f"launches A {stats['launches_A']}, B {stats['launches_B']}, "
-              f"C {stats['launches_C']}; buffered at most "
+              f"C {stats['launches_C']}, OSD {stats['launches_osd']}; "
+              f"buffered at most "
               f"{sd.peak_buffered} samples (bound {stats['buffer_bound']}); "
               f"peak device memory {stats['peak_mib']:.0f} MiB, "
               f"{stats['peak_rise_mib']:.0f} MiB over the run's start")
@@ -944,6 +1049,7 @@ def stream_and_cli(dev, reset_counts, hour, hour_ref, hour_payloads):
         torch.cuda.synchronize()
         launches[label] = (sc_decode.launches, scl_decode.launches,
                            scl_decode.fast_launches)
+        osd_launches(f"cli {label}")
         check(rc == 0, f"cli.main {label}: rc {rc}")
     print(f"cli launches in this process (A, B, C): {launches}")
     check(launches["decode"] == (0, 1, 0)
@@ -1489,10 +1595,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from modem_tpu_torch import bits as B
+    from modem_tpu_torch import profiling
     from modem_tpu_torch.decoder import Decoder
     from modem_tpu_torch.encoder import Encoder
     from modem_tpu_torch.fec.polar import PolarCode
     from modem_tpu_torch.kernels import _build
+    from modem_tpu_torch.kernels.osd_eliminate import osd_eliminate
     from modem_tpu_torch.kernels import sc_decode as sc_mod
     from modem_tpu_torch.kernels import scl_decode as scl_mod
     from modem_tpu_torch.kernels.sc_decode import (ScPlan, blocks_per_sm,
@@ -1723,6 +1831,7 @@ def main() -> int:
     def reset_counts():
         sc_decode.launches = scl_decode.launches = 0
         scl_decode.fast_launches = 0
+        osd_eliminate.launches = profiling.osd_steps = 0
         sc_decode.variant_launches.clear()
         scl_decode.variant_launches.clear()
         for probe in (p256, rank3, interleave):
@@ -1945,11 +2054,15 @@ def main() -> int:
     dec_s = time.perf_counter() - t0
     dec_launches = (sc_decode.launches, scl_decode.launches,
                     scl_decode.fast_launches)
+    dec_osd = osd_launches("Decoder")
     check(not any(option_counts().values()),
           f"the Decoder path launched {option_counts()}")
+    check(dec_osd >= len(dec_rows), f"Decoder: {dec_osd} OSD launches for "
+          f"{len(dec_rows)} decodes")
     print(f"decoder: {len(dec_rows)} recordings byte-exact with the right "
           f"mode and call sign in {dec_s:.2f} s; launches A, B, C "
-          f"{dec_launches}: " + "; ".join(
+          f"{dec_launches}, OSD {dec_osd} (one a header hypothesis): "
+          + "; ".join(
               f"{name}: p0 {r.symbol_pos}, flips {r.bit_flips}, cfo "
               f"{r.cfo_hz:.3f} Hz" for name, r in dec_rows))
     check(dec_launches == (0, len(runs) + len(MODES), len(runs)),
@@ -2469,6 +2582,7 @@ def main() -> int:
     stream_summary, stream_entries = stream_and_cli(dev, reset_counts, *hour)
     check(not any(option_counts().values()),
           f"the stream and CLI paths launched {option_counts()}")
+    osd = osd_entry(dev)
     print(f"stream and cli: phase in {time.perf_counter() - t0:.1f} s on "
           f"{card}")
 
@@ -2527,7 +2641,7 @@ def main() -> int:
          "ms_1": list_ms["C", 1][0], "plain_ms_1": list_ms["C", 1][1],
          "bound_ms_1": kernel_bound(sched, 1, LIST_SIZE, False)["bound_ms"],
          "escalation_launches": esc_c_launches[2], **main_tier}] + \
-        decode_all_entries + stream_entries + multi_entries + \
+        decode_all_entries + stream_entries + [osd] + multi_entries + \
         envelope_entries + options
     for k in kernels:
         print(f"bound {k['name']} at {k['shape']}: {k['bound_ms']:.4f} ms "

@@ -8,7 +8,8 @@ here, for each block of a leading batch axis:
   * sort the 255 soft values by reliability (stable) and Gaussian-
     eliminate the generator matrix over GF(2) in that column order, so
     the basis is systematic in the 71 most reliable independent
-    positions (a 255-step column scan);
+    positions (a 255-step column scan: one kernel launch on the card,
+    the plain loop on the CPU; ``kernels.osd_eliminate``);
   * every flip pattern of weight <= 4 over the basis bits is the XOR of
     two half patterns A, B of weight <= 2.  With U = [0; singles; pairs]
     the codeword-domain flip rows [2557, 255] and t the signed soft
@@ -29,7 +30,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import profiling
+from ..kernels.osd_eliminate import osd_eliminate
 from ..profiling import span, wait
 from . import bch
 
@@ -61,42 +62,6 @@ def _canonical_mask(k: int = bch.K) -> np.ndarray:
              | ((wa == 2) & (wb == 2))) & (hi[:, None] < lo[None, :])
     valid[0, 0] = True
     return valid
-
-
-def _rref_gf2(mat: torch.Tensor):
-    """Reduced row echelon form of a batch of [k, n] GF(2) matrices (uint8
-    0/1) by a scan over the n columns in order, so the pivots are the
-    first k independent columns.  Returns (reduced [B, k, n], pivot
-    column per row [B, k]).  Adds the n columns walked to
-    ``profiling.osd_steps``; each column's clear waits for the card once
-    (the host's 0 copied there)."""
-    batch, k, n = mat.shape
-    dev = mat.device
-    m = mat.clone()
-    rows = torch.arange(k, device=dev)
-    bidx = torch.arange(batch, device=dev)
-    rank = torch.zeros(batch, dtype=torch.int64, device=dev)
-    pivots = torch.zeros(batch, k, dtype=torch.int64, device=dev)
-    profiling.osd_steps += n
-    for col in range(n):
-        colv = m[:, :, col] > 0
-        cand = torch.where(colv & (rows >= rank[:, None]), rows, k)
-        prow = cand.min(dim=1).values
-        do = (prow < k) & (rank < k)
-        rk = rank.clamp(max=k - 1)
-        pr = torch.where(do, prow, rk)         # no swap when nothing to do
-        row_rank, row_piv = m[bidx, rk], m[bidx, pr]
-        m[bidx, pr] = row_rank
-        m[bidx, rk] = row_piv
-        # clear the column in every other row
-        elim = m[:, :, col].clone()
-        with wait("osd.column"):
-            elim[bidx, rk] = 0
-        elim = elim * do[:, None]
-        m ^= elim[:, :, None] & m[bidx, rk][:, None, :]
-        pivots[bidx, rk] = torch.where(do, col, pivots[bidx, rk])
-        rank = rank + do
-    return m, pivots
 
 
 def _gf2_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -133,10 +98,10 @@ def osd_decode(soft, genmat: np.ndarray | None = None, order: int = 4):
     with span("osd.eliminate"):
         # reliability order, most reliable first; ties keep column order
         perm = torch.argsort(-soft.abs(), dim=1, stable=True)
-        g_perm = g[:, perm].permute(1, 0, 2)             # [B, k, n]
         soft_perm = soft.gather(1, perm)
         hard = (soft_perm < 0).to(torch.uint8)
-        g_red, pivots = _rref_gf2(g_perm)
+        # g[:, perm] reduced: one launch on the card, the loop on the CPU
+        g_red, pivots = osd_eliminate(g, perm)
 
     with span("osd.score"):
         c0 = _gf2_matmul(hard.gather(1, pivots)[:, None, :], g_red)[:, 0]

@@ -12,8 +12,10 @@ structured records (``DecodeResult``, the batch dicts); this module adds
     in memory (:func:`spans`, :func:`clear_spans`);
   * the counters :data:`syncs` (the points at which the host thread
     waits for the card; every one goes through :func:`wait`) and
-    :data:`osd_steps` (the columns the OSD's host-driven elimination
-    walks), always on, plain ints as the kernels' ``launches`` are;
+    :data:`osd_steps` (n = 255 for each ``fec.osd.osd_decode`` call on
+    either device: the columns of its elimination, not those the card's
+    kernel walks; the benchmark harness labels header feeds by it),
+    always on, plain ints as the kernels' ``launches`` are;
   * :func:`device_trace`, a ``torch.profiler`` trace of a block written
     as a Chrome trace, and :class:`StageTimer`, a wall-clock stage timer
     that charges each stage the device work it queued.
@@ -37,10 +39,11 @@ from torch.autograd import profiler as _autograd_profiler
 from torch.utils._pytree import tree_leaves
 
 syncs = 0        # host waits for the card, one a wait() (always counted)
-osd_steps = 0    # columns walked by fec.osd's GF(2) elimination
+osd_steps = 0    # 255 an fec.osd.osd_decode call, on either device
 
 # the counters whose deltas a span records (the keys of SpanRecord.counts)
-COUNTERS = ("syncs", "osd_steps", "sc_launches", "scl_launches")
+COUNTERS = ("syncs", "osd_steps", "sc_launches", "scl_launches",
+            "osd_launches")
 
 _records: list = []
 _local = threading.local()            # the open spans of this thread
@@ -50,9 +53,11 @@ _NULL = contextlib.nullcontext()
 
 
 def _counts() -> tuple:
+    from .kernels.osd_eliminate import osd_eliminate
     from .kernels.sc_decode import sc_decode
     from .kernels.scl_decode import scl_decode
-    return (syncs, osd_steps, sc_decode.launches, scl_decode.launches)
+    return (syncs, osd_steps, sc_decode.launches, scl_decode.launches,
+            osd_eliminate.launches)
 
 
 @dataclasses.dataclass(eq=False)

@@ -25,9 +25,14 @@ from modem_tpu_torch import profiling
 from modem_tpu_torch.card import GRAPH_CALLS, GRAPH_REPLAYS, graph_ms
 from modem_tpu_torch.decoder import Decoder
 from modem_tpu_torch.encoder import Encoder
+from modem_tpu_torch.fec.bch import generator_matrix
+from modem_tpu_torch.fec.osd import osd_decode
+from modem_tpu_torch.fec.osd_np import osd_decode_np
 from modem_tpu_torch.fec.polar import PolarCode
 from modem_tpu_torch.fec.schedule import C_WIDTH
 from modem_tpu_torch.kernels import sc_decode as sc_mod
+from modem_tpu_torch.kernels.osd_eliminate import (osd_eliminate,
+                                                   osd_eliminate_reference)
 from modem_tpu_torch.kernels.sc_decode import (NARROW, ScPlan, blocks_per_sm,
                                                narrow_runs, sc_decode,
                                                sc_decode_reference, tiers_of)
@@ -272,7 +277,9 @@ def test_syncs_count_every_wait_for_the_card(cuda_device):
     batch, an escalating batch (the card's recordings; and a clean one
     from the host, whose upload waits) and a mono golden decode, the
     counter equals the synchronising operations torch flags, plus the
-    batch's event synchronise, which the mode does not flag."""
+    batch's event synchronise, which the mode does not flag.  The golden
+    decode's OSD elimination is one kernel launch: it counts 255 waits
+    fewer than with the plain column loop on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     pipe = toy_pipeline(AdaptivePipeline, cuda_device, list_size=4)
     clean = torch.as_tensor(toy_batches()[0.0]).to(cuda_device)
@@ -292,6 +299,15 @@ def test_syncs_count_every_wait_for_the_card(cuda_device):
         if name == "escalating":
             assert pipe.last_fallbacks > 0
     assert len(_syncs_and_flags(runs["clean"])[1]) == 0
+    launches = osd_eliminate.launches
+    kernel, _ = _syncs_and_flags(runs["decode"])
+    assert osd_eliminate.launches == launches + 1
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr("modem_tpu_torch.fec.osd.osd_eliminate",
+                   lambda g, perm: osd_eliminate_reference(
+                       g[:, perm].permute(1, 0, 2)))
+        plain, flagged = _syncs_and_flags(runs["decode"])
+    assert plain == len(flagged) and plain - kernel == 255
 
 
 SLEEP_CYCLES = 10 ** 8        # ~50 ms at the H100's clock
@@ -1064,3 +1080,183 @@ def test_gloo_world2_sharded_recording_on_card(cuda_device):
             assert np.array_equal(res[key].numpy(), want[key].cpu().numpy())
         assert stats["launches_B"] == 1
         assert (stats["chunks"], stats["rank_chunks"]) == (2, 1)
+
+# -- the OSD header's elimination kernel (csrc/osd_eliminate.cu) --------------
+# The kernel byte for byte equal to its plain loop, osd_eliminate_reference
+# (run on the card's tensors), at [1], [12] and [128] on the BCH generator
+# in reliability orders and on random matrices, full rank and
+# rank-deficient; osd_decode on the card equal to the CPU's and to osd_np
+# in (data, unique) on tests/test_osd.py's blocks and an all-erased tie
+# (tests/test_torch_decoder.py holds the CPU's to JAX's on the same
+# blocks); one card call launches once, counts 255 columns and waits only
+# for its uploads; the wrapper raises on what it does not take.  The
+# emulated kernel takes the same inputs (tests/test_torch_osd_emulated.py).
+
+OSD_K, OSD_N = 71, 255
+
+
+def osd_blocks(name):
+    """tests/test_osd.py's inputs as soft [n, 255] int8 (the port's
+    generator, which tests/test_torch_host.py holds to JAX's)."""
+    g = generator_matrix()
+    if name == "tie":
+        return np.zeros((1, 255), np.int8)
+    if name == "noiseless":
+        rng = np.random.default_rng(1)
+        u = rng.integers(0, 2, (1, 71), dtype=np.uint8)
+        soft = 127 * (1 - 2 * ((u @ g) % 2).astype(np.int32))
+    elif name == "erasure":
+        rng = np.random.default_rng(3)
+        u = rng.integers(0, 2, (1, 71), dtype=np.uint8)
+        soft = 100 * (1 - 2 * ((u @ g) % 2).astype(np.int32))
+        soft[0, rng.choice(255, 40, replace=False)] = 0
+    else:
+        sigma = float(name[len("awgn"):])
+        rng = np.random.default_rng(2)
+        softs = []
+        for _ in range(5):
+            u = rng.integers(0, 2, 71, dtype=np.uint8)
+            rx = (1.0 - 2.0 * ((u @ g) % 2)) + sigma * rng.standard_normal(255)
+            softs.append(np.clip(np.round(127 * rx / 4), -128, 127))
+        soft = np.stack(softs)
+    return soft.astype(np.int8)
+
+
+OSD_NAMES = ["noiseless", "awgn0.5", "awgn0.8", "erasure", "tie"]
+
+
+def osd_soft_batch(batch: int) -> np.ndarray:
+    """tests/test_osd.py's blocks, then seeded noisy ones, [batch, 255]."""
+    soft = np.concatenate([osd_blocks(n) for n in OSD_NAMES])
+    rng = np.random.default_rng(batch)
+    g = generator_matrix()
+    extra = []
+    while len(soft) + len(extra) < batch:
+        u = rng.integers(0, 2, 71, dtype=np.uint8)
+        rx = (1.0 - 2.0 * ((u @ g) % 2)) + 0.9 * rng.standard_normal(255)
+        extra.append(np.clip(np.round(127 * rx / 4), -128, 127))
+    if extra:
+        soft = np.concatenate([soft, np.stack(extra).astype(np.int8)])
+    return soft[:batch]
+
+
+OSD_KINDS = ["bch", "random", "deficient", "rank3", "zero"]
+
+
+def osd_case(kind: str, batch: int, seed: int):
+    """(g [71, 255] uint8 0/1, perm [batch, 255] int64): BCH(255,71)'s
+    generator in the stable reliability orders of osd_soft_batch, or, in
+    seeded random orders, a random matrix, one of rank < 71 (zero and
+    repeated columns, dependent and zero rows), one of rank 3, or zeros."""
+    rng = np.random.default_rng(seed)
+    if kind == "bch":
+        soft = torch.from_numpy(osd_soft_batch(batch)).float()
+        perm = torch.argsort(-soft.abs(), dim=1, stable=True).numpy()
+        return generator_matrix().astype(np.uint8), perm
+    perm = np.stack([rng.permutation(OSD_N) for _ in range(batch)])
+    if kind == "zero":
+        return np.zeros((OSD_K, OSD_N), np.uint8), perm
+    if kind == "rank3":
+        basis = rng.integers(0, 2, (3, OSD_N))
+        mix = rng.integers(0, 2, (OSD_K, 3))
+        return (mix @ basis % 2).astype(np.uint8), perm
+    g = rng.integers(0, 2, (OSD_K, OSD_N), dtype=np.uint8)
+    if kind == "deficient":
+        g[:, rng.choice(OSD_N, 20, replace=False)] = 0
+        g[:, rng.choice(OSD_N, 30, replace=False)] = g[:, rng.choice(
+            OSD_N, 30, replace=False)]
+        for r in rng.choice(OSD_K, 12, replace=False):
+            a, b = rng.choice(OSD_K, 2, replace=False)
+            g[r] = g[a] ^ g[b]
+        g[rng.choice(OSD_K, 4, replace=False)] = 0
+    return g, perm
+
+
+def assert_osd_rank(red, kind: str) -> None:
+    """Full rank for the BCH generator, below 71 where the input is."""
+    ranks = [int(r.any(axis=1).sum()) for r in np.asarray(red)]
+    if kind == "bch":
+        assert ranks == [OSD_K] * len(ranks)
+    elif kind in ("deficient", "rank3", "zero"):
+        assert max(ranks) < OSD_K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 12, 128])
+@pytest.mark.parametrize("kind", OSD_KINDS)
+def test_osd_kernel_equals_plain_elimination_on_card(cuda_device, kind, batch):
+    g, perm = (torch.from_numpy(a).to(cuda_device)
+               for a in osd_case(kind, batch, seed=batch))
+    before = osd_eliminate.launches
+    red, piv = osd_eliminate(g, perm)
+    torch.cuda.synchronize()
+    assert osd_eliminate.launches == before + 1
+    want_red, want_piv = osd_eliminate_reference(
+        g[:, perm].permute(1, 0, 2))
+    assert red.dtype == torch.uint8 and piv.dtype == torch.int64
+    assert torch.equal(red, want_red) and torch.equal(piv, want_piv)
+    assert_osd_rank(red.cpu(), kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OSD_NAMES)
+def test_osd_decode_on_card_equals_cpu_and_oracle(cuda_device, name):
+    soft = torch.from_numpy(osd_blocks(name))
+    data, unique = osd_decode(soft.to(cuda_device))
+    cdata, cunique = osd_decode(soft)
+    assert torch.equal(data.cpu(), cdata) and torch.equal(unique.cpu(),
+                                                          cunique)
+    for i, s in enumerate(soft.numpy()):
+        nd, nu = osd_decode_np(s)
+        assert np.array_equal(data[i].cpu().numpy(), nd), i
+        assert bool(unique[i]) == nu, i
+    if name == "tie":
+        assert not bool(unique[0])
+
+
+@pytest.mark.cuda
+def test_osd_decode_on_card_launches_once_and_waits_only_to_upload(
+        cuda_device):
+    soft = torch.from_numpy(osd_blocks("awgn0.8")).to(cuda_device)
+    osd_decode(soft)                       # builds and loads the kernel
+    torch.cuda.synchronize()
+    n0, o0, s0 = (osd_eliminate.launches, profiling.osd_steps,
+                  profiling.syncs)
+    osd_decode(soft)
+    assert osd_eliminate.launches - n0 == 1
+    assert profiling.osd_steps - o0 == 255
+    assert profiling.syncs - s0 == 3       # the osd.upload waits
+    profiling.clear_spans()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        osd_decode(soft)
+    spans = {r.name: r for r in profiling.spans()}
+    assert "osd.column" not in spans
+    counts = spans["osd.eliminate"].counts
+    assert counts["osd_launches"] == 1 and counts["syncs"] == 0
+    assert counts["osd_steps"] == 255
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["cpu perm", "g dtype", "perm dtype",
+                                 "g shape", "perm shape"])
+def test_osd_eliminate_raises_on_card_inputs_it_does_not_take(cuda_device,
+                                                               bad):
+    g = torch.from_numpy(generator_matrix().astype(np.uint8))
+    g = g.to(cuda_device)
+    perm = torch.stack([torch.randperm(OSD_N) for _ in range(3)])
+    perm = perm.to(cuda_device)
+    if bad == "cpu perm":
+        perm = perm.cpu()
+    elif bad == "g dtype":
+        g = g.float()
+    elif bad == "perm dtype":
+        perm = perm.int()
+    elif bad == "g shape":
+        g = g[:70].contiguous()
+    else:
+        perm = perm[:, :254].contiguous()
+    before = osd_eliminate.launches
+    with pytest.raises((TypeError, ValueError)):
+        osd_eliminate(g, perm)
+    assert osd_eliminate.launches == before

@@ -57,6 +57,7 @@ from modem_tpu_torch import dsp, profiling, sync, track
 from modem_tpu_torch.decoder import Decoder
 from modem_tpu_torch.fec import scl_np
 from modem_tpu_torch.fec.osd import osd_decode
+from modem_tpu_torch.kernels.osd_eliminate import osd_eliminate
 from modem_tpu_torch.numerology import toy_config
 
 _DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -118,6 +119,41 @@ def test_osd_ties_report_not_unique():
     jd, ju = (np.asarray(v) for v in _jax_osd(soft[0]))
     assert np.array_equal(data[0].numpy(), jd) and not bool(ju)
     assert not bool(unique[0])
+
+
+def test_osd_on_the_cpu_takes_the_plain_loop_and_launches_nothing():
+    """A span records the elimination kernel's launches as
+    ``osd_launches``; a CPU call runs the plain loop (255 columns, each
+    a counted wait) and leaves the kernel's counter alone."""
+    assert "osd_launches" in profiling.COUNTERS
+    soft, _ = _osd_blocks("awgn0.5")
+    n0, o0, s0 = (osd_eliminate.launches, profiling.osd_steps,
+                  profiling.syncs)
+    osd_decode(torch.from_numpy(soft))
+    assert osd_eliminate.launches == n0
+    assert profiling.osd_steps - o0 == 255
+    assert profiling.syncs - s0 >= 255
+
+
+@pytest.mark.parametrize("bad", ["g dtype", "perm dtype", "g shape",
+                                 "perm shape", "device", "contiguous"])
+def test_osd_eliminate_raises_on_inputs_it_does_not_take(bad):
+    g = torch.from_numpy(jbch.generator_matrix().astype(np.uint8))
+    perm = torch.stack([torch.randperm(255) for _ in range(2)])
+    if bad == "g dtype":
+        g = g.int()
+    elif bad == "perm dtype":
+        perm = perm.int()
+    elif bad == "g shape":
+        g = g[:, :200].contiguous()
+    elif bad == "perm shape":
+        perm = perm[:, None]
+    elif bad == "device":
+        g, perm = g.to("meta"), perm.to("meta")
+    else:
+        perm = perm.t().contiguous().t()
+    with pytest.raises((TypeError, ValueError)):
+        osd_eliminate(g, perm)
 
 
 # -- front end ---------------------------------------------------------------

@@ -70,9 +70,9 @@ Phases:
      launched once per decode, the OSD elimination kernel once a header
      hypothesis (its launches equal to the osd_decode calls, 255
      profiling.osd_steps each, on every drive of phases 9, 13 and 14:
-     no header decode on the card takes the plain loop); then the
-     decode's wall time split into
-     scan, header (demod + OSD), payload demod and list decode;
+     no header decode on the card takes the plain loop); then one
+     whole decode's wall time with each kernel (the benchmark's
+     m6-8k.interactive cell times the stages);
  10. kernel C', make_decoder's options at wire size, each driven with
      every launch count at 0 just before and read just after:
      decompose_spc (B at [16, 65536] against its plain version: same
@@ -1519,14 +1519,16 @@ def envelope(dev, reset_counts, frames: int = ENVELOPE_FRAMES,
         0, torch.as_tensor(group, device=x.device))
     i = min(good["d"])
     xd = dec.frontend(recs[i], 2)
-    hdr = None
-    for cand in dec.sync.scan(xd):
-        if cand.ok:
-            hdr, _ = dec._decode_header(xd, cand)
-            if hdr is not None:
-                break
-    check(hdr is not None, f"envelope: no header in recording {i}")
-    dec_llrs = dec._demod(xd, cand, hdr[0])[0]
+    cands = [c for c in dec.sync.scan(xd) if c.ok]
+    found = [(c, h) for c, (h, _) in zip(
+        cands, dec.decode_headers_batch(xd, cands)) if h is not None]
+    check(bool(found), f"envelope: no header in recording {i}")
+    cand, hdr = found[0]
+    dec_pipe = dec.pipeline(hdr[0])
+    dec_llrs = dec_pipe.demod_at(
+        xd[None], torch.tensor([cand.p0], device=x.device),
+        torch.tensor([cand.cfo_rad], dtype=torch.float32,
+                     device=x.device))[0]
     entries = [
         kernel_entry("sc_decode[envelope]", pipe.sc.plan, front["llrs"], 1,
                      launches["A"]),
@@ -1535,7 +1537,7 @@ def envelope(dev, reset_counts, frames: int = ENVELOPE_FRAMES,
         kernel_entry("scl_decode[envelope]", pipes["c"].plan,
                      pipes["c"].demod(x)["llrs"], LIST_SIZE,
                      launches["B list"]),
-        kernel_entry("scl_decode[envelope]", dec._tables(6).plan, dec_llrs,
+        kernel_entry("scl_decode[envelope]", dec_pipe.plan, dec_llrs,
                      LIST_SIZE, launches["B Decoder"])]
     check(all(e["launches"] > 0 for e in entries),
           f"envelope: a kernel never launched at its shape: "
@@ -2068,29 +2070,13 @@ def main() -> int:
     check(dec_launches == (0, len(runs) + len(MODES), len(runs)),
           f"Decoder launches {dec_launches}")
 
-    # the stage split of one decode: golden I/Q, kernel B
-    dec = decoders[True]
-    x = dec.frontend(golden, 2)
-    cands = [c for c in dec.sync.scan(x) if c.ok]
-    cand = cands[0]
+    # one whole decode, golden I/Q, each kernel (the benchmark's
+    # m6-8k.interactive cell times the stages: scan_ms, header_ms)
     stage_ms = {
-        "mono front end": wall_ms(lambda: dec.frontend(golden.real.copy(),
-                                                       1), 5),
-        "scan": wall_ms(lambda: dec.sync.scan(x), 5),
-        "header (demod + OSD + CRC-16)": wall_ms(
-            lambda: dec._decode_header(x, cand), 5),
-        "payload demod": wall_ms(lambda: dec._demod(x, cand, 6), 5),
-    }
-    full = dec._demod(x, cand, 6)[0]
-    stage_ms["list decode + select (B)"] = wall_ms(
-        lambda: dec._list_select(full, 6), 5)
-    stage_ms["list decode + select (C)"] = wall_ms(
-        lambda: decoders[False]._list_select(full, 6), 5)
-    stage_ms["whole decode (I/Q, B)"] = wall_ms(
-        lambda: dec.decode(golden, channels=2), 5)
-    stage_ms["whole decode (I/Q, C)"] = wall_ms(
-        lambda: decoders[False].decode(golden, channels=2), 5)
-    print("decoder stages, golden recording, median of 5: " + "; ".join(
+        f"whole decode (I/Q, {'B' if ex else 'C'})": wall_ms(
+            lambda d=d: d.decode(golden, channels=2), 5)
+        for ex, d in decoders.items()}
+    print("decoder, golden recording, median of 5: " + "; ".join(
         f"{k} {v:.2f} ms" for k, v in stage_ms.items()))
 
     # ---- 10. kernel C': the decoder's options at wire size, mode 6 --------

@@ -9,8 +9,7 @@ by metric; the output is the re-encoded codeword per surviving path.
 
 Conventions: LLR > 0 favours bit 0; bits are 0/1; path metric penalty is
 |llr| whenever a decision disagrees with the LLR sign.  At the 2^16 wire
-size it takes minutes; ``Decoder(device_scl=False)`` uses it as an
-oracle.
+size it takes minutes: an oracle, on no decode path.
 """
 
 from __future__ import annotations

@@ -233,7 +233,7 @@ class ScPlan:
     A's rows and the list kernels'."""
 
     sched: Schedule
-    _tables: dict = dataclasses.field(default_factory=dict, repr=False)
+    _packed: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
     def from_frozen(cls, frozen: np.ndarray, emit_spc: bool = True
@@ -246,19 +246,19 @@ class ScPlan:
     def list_rows(self, device: torch.device) -> torch.Tensor:
         """The list kernels' packed rows (:func:`pack_list_rows`) on
         ``device``."""
-        if ("list_rows", device) not in self._tables:
-            self._tables["list_rows", device] = torch.from_numpy(
+        if ("list_rows", device) not in self._packed:
+            self._packed["list_rows", device] = torch.from_numpy(
                 pack_list_rows(self.sched.ops)).to(device).contiguous()
-        return self._tables["list_rows", device]
+        return self._packed["list_rows", device]
 
     def rows(self, device: torch.device, tiers: Tiers) -> torch.Tensor:
         """Kernel A's packed rows (:func:`pack_rows`) for ``tiers`` on
         ``device``."""
         key = ("rows", device, tiers.llr_lo, tiers.beta_lo)
-        if key not in self._tables:
-            self._tables[key] = torch.from_numpy(
+        if key not in self._packed:
+            self._packed[key] = torch.from_numpy(
                 pack_rows(self.sched.ops, tiers)).to(device).contiguous()
-        return self._tables[key]
+        return self._packed[key]
 
 
 def sc_decode_reference(llrs: torch.Tensor, sched: Schedule):

@@ -29,7 +29,9 @@ decodes a recording of frames of any mode (and, under
 ``mls_convention="auto"``, any LFSR convention): one scan, one batch of
 headers, then one windowed decode per (mode, convention) group.  A
 recording may be an ``ingest.PcmRecording`` in wire dtype, whose front
-end runs on the device.
+end runs on the device.  The interactive ``decoder.Decoder`` decodes
+its payload through a BatchPipeline too, a batch of one frame at a
+known position (:meth:`BatchPipeline.demod_at`).
 """
 
 from __future__ import annotations
@@ -183,13 +185,7 @@ class BatchPipeline:
         [B, code_len] (lengthened) and the per-frame sync metrics.
         Counterpart of the JAX ``_demod_one``, over the whole batch."""
         x = as_recordings(recordings, self.device)
-        cfg = self.cfg
-        mode = cfg.mode
-        s, g = cfg.symbol_len, cfg.guard_len
-        rows = mode.cons_rows
         L = self.sync.L
-        batch = x.shape[0]
-
         p0, fc, multiframe = self._sync_argmax(x)
         window = slice_windows(x, p0 + L, L)
         shift, pos_err, peak, nxt, _ = self.sync._fine_stage(window, fc)
@@ -197,6 +193,22 @@ class BatchPipeline:
         cfo = shift.to(torch.float32) * (2.0 * math.pi / L) - fc
         cfo = torch.where(cfo >= math.pi, cfo - 2.0 * math.pi, cfo)
 
+        full, snr, _slope, _yint = self.demod_at(x, p0, cfo)
+        return dict(llrs=full, p0=p0, cfo_rad=cfo, snr=snr,
+                    sync_gate=peak > 4.0 * nxt, multiframe=multiframe)
+
+    def demod_at(self, x: torch.Tensor, p0: torch.Tensor,
+                 cfo_rad: torch.Tensor):
+        """The payload half of :meth:`demod`, for frames whose preamble
+        position and CFO are known: x [B, T] complex64, p0 [B] int64,
+        cfo_rad [B] f32, all on the device -> (LLRs [B, code_len]
+        lengthened, snr [B, rows], each frame's mean Theil-Sen slope [B]
+        and intercept [B])."""
+        cfg = self.cfg
+        mode = cfg.mode
+        s, g = cfg.symbol_len, cfg.guard_len
+        rows = mode.cons_rows
+        batch = x.shape[0]
         # payload windows: pilot + rows (decode.cc:456-470), one
         # contiguous slice per recording, rows cut by a reshape
         flat = slice_windows(x, p0 + 2 * (s + g), rows * (s + g) + s)
@@ -205,18 +217,18 @@ class BatchPipeline:
         w = torch.arange(rows + 1, dtype=torch.float32,
                          device=x.device)[:, None]
         k = torch.arange(s, dtype=torch.float32, device=x.device)[None, :]
-        phase = -cfo[:, None, None] * (s + w * (s + g) + k)
+        # the oscillator phase continues from the metadata symbol
+        # (advanced S there), through every guard (decode.cc:458-470)
+        phase = -cfo_rad[:, None, None] * (s + w * (s + g) + k)
         spec = fft.fwd(windows * torch.complex(torch.cos(phase),
                                                torch.sin(phase)))
         carriers = spec[..., self._bins]
         cons = ofdm.demod_or_erase(carriers[:, 1:], carriers[:, :-1])
-        cons, _slope, _yint = track.derotate_rows(cons, self._code_off,
-                                                  mode.mod_bits,
-                                                  self.estimator)
+        cons, slope, yint = track.derotate_rows(cons, self._code_off,
+                                                mode.mod_bits, self.estimator)
         llrs, snr = track.soft_llrs(cons, mode.mod_bits)
         full = self.code.lengthen(llrs.reshape(batch, -1))
-        return dict(llrs=full.contiguous(), p0=p0, cfo_rad=cfo, snr=snr,
-                    sync_gate=peak > 4.0 * nxt, multiframe=multiframe)
+        return full.contiguous(), snr, slope, yint
 
     def _fec_select(self, front: dict) -> dict:
         """Polar decode + CRC-32 path select on a demodulated batch
@@ -564,38 +576,58 @@ def decode_recording_auto(x, rate: int, channels: int = 2,
         for c, (hdr, status) in zip(cands,
                                     dec.decode_headers_batch(x, cands)):
             if hdr is None:
-                rejects.append(dict(pos=int(c.p0), mode=None, call_sign="",
-                                    ok=False, payload=b"", flips=None,
-                                    snr=None, status=status))
+                rejects.append(rejected(c.p0, status))
                 continue
             oper_mode, call = hdr
             frames.append((c.p0, oper_mode, B.base37_decode(call).lstrip(),
                            dec.sync.conventions[c.conv]))
+    factory = cached_adaptive_pipeline if adaptive else cached_pipeline
     with stage("windows"):
-        groups: dict[tuple, list[int]] = {}
-        for i, (_p, mode, _c, conv) in enumerate(frames):
-            groups.setdefault((mode, conv), []).append(i)
-        factory = cached_adaptive_pipeline if adaptive else cached_pipeline
-        cut = []
-        for (mode, conv), idxs in groups.items():
-            pipe = factory(rate, mode, mls_convention=conv, device=device)
-            wins, _ = pipe.windows_at(x, [frames[i][0] for i in idxs])
-            cut.append((pipe, idxs, wins))
-    results = [None] * len(frames)
+        cut = cut_groups(x, frames, factory, rate, device)
     with stage("payload"):
-        for pipe, idxs, wins in cut:
-            res = pipe.fetch(pipe.decode_windows(wins))
-            for j, i in enumerate(idxs):
-                results[i] = (pipe, res, j)
-    out = []
-    for (p0, mode, call, _conv), (pipe, res, j) in zip(frames, results):
-        ok = bool(res["ok"][j])
-        out.append(dict(pos=int(p0), mode=mode, call_sign=call, ok=ok,
-                        payload=pipe.payload_bytes(res, j),
-                        flips=int(res["flips"][j]),
-                        snr=np.asarray(res["snr"][j]),
-                        status="ok" if ok else "payload decoding error."))
+        out = decode_groups(cut)
     out.extend(rejects)
     out.sort(key=lambda f: f["pos"])
     return out
 
+
+def rejected(pos, status: str, mode=None, call_sign: str = "") -> dict:
+    """The answer dict of a frame that was not decoded: its header
+    failed (``mode`` None), or its payload window leaves the recording."""
+    return dict(pos=int(pos), mode=mode, call_sign=call_sign, ok=False,
+                payload=b"", flips=None, snr=None, status=status)
+
+
+def cut_groups(x, frames, factory, rate: int, device) -> list:
+    """Frames with decoded headers, (pos, mode, call sign, convention)
+    each, grouped by (mode, convention): each group's windows cut from
+    ``x`` by the group's pipeline ``factory(rate, mode,
+    mls_convention=conv, device=device)``.  Returns [(pipeline, the
+    group's frames, windows)]."""
+    groups: dict[tuple, list] = {}
+    for f in frames:
+        groups.setdefault((f[1], f[3]), []).append(f)
+    cut = []
+    for (mode, conv), group in groups.items():
+        pipe = factory(rate, mode, mls_convention=conv, device=device)
+        wins, _ = pipe.windows_at(x, [f[0] for f in group])
+        cut.append((pipe, group, wins))
+    return cut
+
+
+def decode_groups(cut) -> list:
+    """Decode each group of :func:`cut_groups` as one batch and fetch it:
+    one answer dict a frame {pos, mode, call_sign, ok, payload, flips,
+    snr, status}, status "ok" or "payload decoding error.", in group
+    order."""
+    out = []
+    for pipe, group, wins in cut:
+        res = pipe.fetch(pipe.decode_windows(wins))
+        for j, (pos, mode, call, _conv) in enumerate(group):
+            ok = bool(res["ok"][j])
+            out.append(dict(pos=int(pos), mode=mode, call_sign=call, ok=ok,
+                            payload=pipe.payload_bytes(res, j),
+                            flips=int(res["flips"][j]),
+                            snr=np.asarray(res["snr"][j]),
+                            status="ok" if ok else "payload decoding error."))
+    return out

@@ -12,8 +12,9 @@ calls; then, once the windows they read are buffered:
 * the fine stage and the gates of each sync event;
 * the BCH + OSD headers, one ``Decoder.decode_headers_batch`` a feed;
 * the payloads, grouped by (mode, convention), through the cached
-  ``BatchPipeline``'s ``windows_at`` and ``decode_windows`` (the list-8
-  kernel B), as ``pipeline.decode_recording_auto`` decodes them.
+  list-8 ``BatchPipeline`` of each group (kernel B): the step
+  ``pipeline.cut_groups`` / ``decode_groups`` that
+  ``pipeline.decode_recording_auto`` also takes.
 
 The samples live in an ``ingest.StreamBuffer`` on the host in wire
 dtype (or as a complex analytic signal for float input).  Every window,
@@ -48,6 +49,7 @@ import numpy as np
 from . import bits as B
 from .ingest import StreamBuffer
 from .numerology import MODES, ModemConfig
+from .pipeline import cached_pipeline, cut_groups, decode_groups, rejected
 from .profiling import span
 from .sync import _BLK
 
@@ -99,7 +101,8 @@ class StreamDecoder:
         self._carry = self.sync.scan_start()
         self._events = []               # (p0, frac_cfo) awaiting the fine stage
         self._cands = []                # gated SyncCandidates awaiting headers
-        self._frames = []               # (cand, mode, call) awaiting payloads
+        # (p0, mode, call, convention) awaiting payloads
+        self._frames = []
         self._eos = None                # the stream's length, once finished
 
     # -- input -------------------------------------------------------------
@@ -150,7 +153,7 @@ class StreamDecoder:
         self._cands.extend(c for c in self.sync.fine_candidates(wins, ready)
                            if c.ok)
 
-    def _decode_headers(self, emitted: list) -> None:
+    def _header_stage(self, emitted: list) -> None:
         s, g = self.cfg.symbol_len, self.cfg.guard_len
 
         def hdr_end(c):
@@ -169,58 +172,38 @@ class StreamDecoder:
             # the silence pad (decode.cc:296-297)
             for c in ready:
                 if c.p0 + 2 * s + g > self._eos:
-                    emitted.append(self._reject(c, "past recording end"))
+                    emitted.append(rejected(c.p0, "past recording end"))
             ready = [c for c in ready if c.p0 + 2 * s + g <= self._eos]
         if not ready:
             return
         for c, (hdr, status) in zip(
                 ready, self.dec.decode_headers_batch(self.buf, ready)):
             if hdr is None:
-                emitted.append(self._reject(c, status))
+                emitted.append(rejected(c.p0, status))
             else:
                 mode, call = hdr
-                self._frames.append((c, mode, B.base37_decode(call).lstrip()))
+                self._frames.append((c.p0, mode,
+                                     B.base37_decode(call).lstrip(),
+                                     self.sync.conventions[c.conv]))
 
-    @staticmethod
-    def _reject(c, status: str) -> dict:
-        return dict(pos=int(c.p0), mode=None, call_sign="", ok=False,
-                    payload=b"", flips=None, snr=None, status=status)
-
-    def _decode_payloads(self, emitted: list) -> None:
-        from .pipeline import cached_pipeline
+    def _payload_stage(self, emitted: list) -> None:
         g = self.cfg.guard_len
-        groups: dict[tuple, list] = {}
-        rest = []
+        ready, rest = [], []
         for f in self._frames:
-            c, mode, call = f
+            p0, mode, call, _conv = f
             fsamp = ModemConfig(rate=self.rate, mode=MODES[mode],
                                 freq_off=0).frame_samples
-            # windows_at reads through p0 + fsamp - g + g // 2
-            tail = c.p0 + fsamp - g + g // 2
-            if self._eos is not None and c.p0 + fsamp - g > self._eos:
-                emitted.append(dict(
-                    pos=int(c.p0), mode=mode, call_sign=call, ok=False,
-                    payload=b"", flips=None, snr=None,
-                    status="past recording end"))
-            elif self._eos is not None or tail <= self.buf.end:
-                conv = self.sync.conventions[c.conv]
-                groups.setdefault((mode, conv), []).append(f)
+            end = p0 + fsamp - g     # windows_at reads through end + g // 2
+            if self._eos is not None and end > self._eos:
+                emitted.append(rejected(p0, "past recording end", mode,
+                                        call))
+            elif self._eos is not None or end + g // 2 <= self.buf.end:
+                ready.append(f)
             else:
                 rest.append(f)
         self._frames = rest
-        for (mode, conv), fs in groups.items():
-            pipe = cached_pipeline(self.rate, mode, mls_convention=conv,
-                                   device=self.device)
-            wins, _ = pipe.windows_at(self.buf, [f[0].p0 for f in fs])
-            res = pipe.fetch(pipe.decode_windows(wins))
-            for j, (c, _m, call) in enumerate(fs):
-                ok = bool(res["ok"][j])
-                emitted.append(dict(
-                    pos=int(c.p0), mode=mode, call_sign=call, ok=ok,
-                    payload=pipe.payload_bytes(res, j),
-                    flips=int(res["flips"][j]),
-                    snr=np.asarray(res["snr"][j]),
-                    status="ok" if ok else "payload decoding error."))
+        emitted.extend(decode_groups(cut_groups(
+            self.buf, ready, cached_pipeline, self.rate, self.device)))
 
     def _retire(self) -> None:
         """Drop the samples no pending stage can read: a future event's p0
@@ -235,7 +218,7 @@ class StreamDecoder:
         pend += [p for p, _ in self._events]
         for c in self._cands:
             pend += [p for _k, p, _cf, _r in c.alts] or [c.p0]
-        pend += [f[0].p0 for f in self._frames]
+        pend += [f[0] for f in self._frames]
         low = min(min(pend) - (2 * s + 2 * g) - _BLK, n0 - self.ctx)
         self.buf.retire(low - self.lead)
 
@@ -244,9 +227,9 @@ class StreamDecoder:
         with span("stream.fine"):
             self._finalize_events()
         with span("stream.headers"):
-            self._decode_headers(emitted)
+            self._header_stage(emitted)
         with span("stream.payload"):
-            self._decode_payloads(emitted)
+            self._payload_stage(emitted)
         emitted.sort(key=lambda f: f["pos"])
         return emitted
 

@@ -21,7 +21,8 @@ encoder or the frozen golden WAV):
   1e-3 Hz, sfo_ppm within 1e-3 ppm, snr_db within rtol 1e-4 (f32 FFTs
   round differently); the transcript line for line, with the numbers of
   the coarse cfo, coarse sfo, finer cfo and Es/N0 lines within the same
-  tolerances;
+  tolerances; and the loopback cut inside its frame, so that the header
+  or the payload window leaves the recording: status and transcript;
 - the same on a mode-6 recording through the reference impairment chain
   (multipath x10, cfo 234.567 Hz, sfo 147 ppm) at -18 dB, the geometry
   of chip_smoke.py's envelope (phase 16): the interactive decoder of the
@@ -362,31 +363,55 @@ def assert_same_transcript(got: str, want: str):
             assert np.allclose(na, nb, rtol=0, atol=NUMERIC[head]), (la, lb)
 
 
+# the symbol position of _loopback's frame
+LOOPBACK_P0 = 9600
+
+
 @pytest.mark.parametrize("name,channels", [("golden", 2), ("golden", 1),
                                            ("loopback", 2),
-                                           ("loopback", 1)])
+                                           ("loopback", 1),
+                                           ("header-cut", 2),
+                                           ("payload-cut", 2)])
 def test_decoder_matches_jax(port_decoder, name, channels):
+    """The cuts end the loopback inside its frame, so that the header
+    window (half a symbol into the metadata symbol) or the payload
+    window (just past the metadata symbol) leaves the recording: the
+    status, and the transcript up to it, as JAX's."""
     if name == "golden":
         rec = _golden()
         sent = np.load(os.path.join(
             _DATA, "waveform_pin_payload_seed.npy")).tobytes()
     else:
         rec, sent = _loopback()
+    if name.endswith("-cut"):
+        cfg = make_config(8000, 6, 2000)
+        s, g = cfg.symbol_len, cfg.guard_len
+        end = s + g + s // 2 if name == "header-cut" else 2 * s + g
+        rec, sent = rec[: LOOPBACK_P0 + end], None
     samples = rec if channels == 2 else rec.real.astype(np.float32)
     log, jlog = io.StringIO(), io.StringIO()
     got = port_decoder.decode(samples, channels=channels, log=log)
     want = jax_cached_decoder(8000).decode(samples, channels=channels,
                                            log=jlog)
-    assert got.ok and want.ok, (got.status, want.status)
+    assert got.ok == want.ok == (sent is not None), (got.status,
+                                                     want.status)
     assert got.payload == want.payload == sent
     for key in ("ok", "oper_mode", "call_sign", "symbol_pos", "bit_flips",
                 "status", "status_emitted"):
         assert getattr(got, key) == getattr(want, key), key
+    assert_same_transcript(log.getvalue(), jlog.getvalue())
+    if sent is None:
+        assert got.snr_db is None and want.snr_db is None
+        assert got.status == ("header window out of range"
+                              if name == "header-cut"
+                              else "payload decoding error.")
+        assert got.status_emitted
+        assert log.getvalue().startswith(f"symbol pos: {LOOPBACK_P0}\n")
+        return
     assert (got.oper_mode, got.call_sign) == (6, "N0CALL")
     assert abs(got.cfo_hz - want.cfo_hz) <= 1e-3
     assert abs(got.sfo_ppm - want.sfo_ppm) <= 1e-3
     assert np.allclose(got.snr_db, want.snr_db, rtol=1e-4)
-    assert_same_transcript(log.getvalue(), jlog.getvalue())
 
 
 def test_decoder_matches_jax_impaired(port_decoder):
@@ -439,10 +464,11 @@ def test_decoder_options():
 
 # -- spans and counters of a decode (modem_tpu_torch.profiling) ------------------
 
-def _stub_list_decode(full, plan, list_size, exact):
-    """All-zero paths in place of the wire-size list decode: every CRC
-    passes (the CRC is linear with init 0), so the call runs to its end
-    without minutes of the plain list decoder."""
+def _stub_list_decode(full, plan, list_size, exact, *, unroll=False):
+    """All-zero paths in place of the wire-size list decode of the mode
+    pipeline's ``_fec_select``: every CRC passes (the CRC is linear with
+    init 0), so the call runs to its end without the plain list
+    decoder."""
     n = full.shape[1]
     return (torch.zeros(1, list_size, n, dtype=torch.uint8),
             torch.zeros(1, list_size))
@@ -455,7 +481,7 @@ def traced_decodes(port_decoder, tmp_path_factory):
     entries off, syncs on, osd_steps on, the on run's records, the Chrome
     trace's events, the result)."""
     mp = pytest.MonkeyPatch()
-    mp.setattr("modem_tpu_torch.decoder.scl_decode", _stub_list_decode)
+    mp.setattr("modem_tpu_torch.pipeline.scl_decode", _stub_list_decode)
     entered = []
     real = torch.profiler.record_function
     mp.setattr(torch.profiler, "record_function",

@@ -534,7 +534,8 @@ def decode_recording_auto(x, rate: int, channels: int = 2,
     the same on anything either decodes.  ``stats``: a dict that gets
     the wall milliseconds of the stages (``scan_ms``, ``headers_ms``,
     ``windows_ms``, ``payload_ms``, each ending in a device
-    synchronise) and the scan's chunk count (``chunks``).  The stages
+    synchronise), the scan's chunk count (``chunks``) and its rounds,
+    one host read each (``rounds``).  The stages
     are the spans ``decode_all.scan``, ``.headers``, ``.windows`` and
     ``.payload`` of one request (:mod:`profiling`).
 
@@ -570,6 +571,7 @@ def decode_recording_auto(x, rate: int, channels: int = 2,
                  if c.ok]
     if stats is not None:
         stats["chunks"] = dec.sync.last_chunks
+        stats["rounds"] = dec.sync.last_rounds
     frames = []          # (pos, mode, call, convention)
     rejects = []
     with stage("headers"):

@@ -8,7 +8,9 @@ rate or on a stride grid), the fine stage at one candidate
 circular correlation against the MLS0 kernel of each LFSR convention
 the receiver accepts), and :meth:`Synchronizer.scan`, which walks a whole
 recording chunk by chunk with the Schmitt trigger and the per-region
-argmax carried across chunks.  Recordings are complex tensors, or
+argmax carried across chunks on the device, reading a round of chunks'
+first edges back at once (on the card each chunk past the first a
+replay of one CUDA graph).  Recordings are complex tensors, or
 ``ingest.PcmRecording`` wire-dtype samples whose front end runs inside
 the chunk loop; positions are in recording coordinates, ``p0`` pointing
 at the first payload sample of the Schmidl-Cox symbol (decode.cc:84-152).
@@ -104,9 +106,22 @@ def last_true(mask: torch.Tensor, fill) -> torch.Tensor:
     if isinstance(fill, torch.Tensor):
         table[..., 0] = fill
     else:
-        with wait("sync.fill"):          # a host scalar copied to the card
-            table[..., 0] = fill
+        table[..., 0].fill_(fill)       # a kernel argument, no host copy
     return table.gather(-1, count)
+
+
+def cut_span(x: torch.Tensor, lo: int, length: int, fill) -> torch.Tensor:
+    """x[lo : lo + length] along the first axis of x ([T] or [T, C]),
+    ``fill`` where the span leaves x, cut with host ints: a view of x
+    where the span lies inside it, else a filled copy; no index tensor
+    and no host copy."""
+    a, b = max(lo, 0), min(lo + length, x.shape[0])
+    if (a, b) == (lo, lo + length):
+        return x[a:b]
+    out = x.new_full((length,) + tuple(x.shape[1:]), fill)
+    if b > a:
+        out[a - lo: b - lo] = x[a:b]
+    return out
 
 
 def gather_windows(x: torch.Tensor, starts: torch.Tensor, length: int,
@@ -190,14 +205,26 @@ def _region_tail(regions) -> torch.Tensor:
 def _first_edges(regions, k: int) -> torch.Tensor:
     """The first ``k`` falling edges of a chunk as f64 [k, 3] rows (edge,
     n_max, phase), chunk-relative edges in time order, -1 rows past the
-    last edge; no host copy."""
+    last edge; no host copy (:func:`_edge_events` reads them).  The j-th
+    edge lands in slot j - 1 of a table by a scatter (the rest in a
+    spare slot k), a fixed-shape pass where a top-k selection over the
+    chunk would sort it."""
     _s, f, seg_id, _vmax, idx, ph = regions
     c = f.shape[0]
-    pos = torch.where(f, torch.arange(c, device=f.device), c)
-    e = pos.topk(k, largest=False, sorted=True).values
+    count = torch.cumsum(f, 0)
+    slot = torch.where(f & (count <= k), count - 1, k)
+    e = torch.full((k + 1,), c, dtype=torch.int64, device=f.device)
+    e = e.scatter(0, slot, torch.arange(c, device=f.device))[:k]
     seg = seg_id[e.clamp(max=c - 1)]
     return torch.stack([torch.where(e < c, e, -1).double(),
                         idx[seg].double(), ph[seg].double()], dim=1)
+
+
+def _edge_events(n0: int, rows, n_out: int) -> list:
+    """A chunk's :func:`_first_edges` rows on the host -> (edge, n_max,
+    phase) events with absolute edges before ``n_out``."""
+    return [(int(n0 + e), int(nm), float(ph))
+            for e, nm, ph in rows if 0 <= e and n0 + e < n_out]
 
 
 @dataclasses.dataclass
@@ -238,6 +265,63 @@ def as_recording(x, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.complex64)
 
 
+def layout(x) -> tuple:
+    """(bits, channels) of a recording for the front end: (None, 1) for
+    analytic samples (a tensor, or a StreamBuffer of ``bits`` None)."""
+    if isinstance(x, torch.Tensor):
+        return None, 1
+    return x.bits, x.channels
+
+
+class _ChunkGraph:
+    """The scan's chunk body past the recording start (n0 > 0: the
+    chunk's metrics mask nothing) as one CUDA graph, for one (layout,
+    chunk, context, first edges): the chunk's raw samples, n0 and the
+    carry are static inputs that :meth:`step` fills before each replay,
+    so a chunk costs the host a dozen launches, not the body's ~130
+    operations.  The same kernels on the same shapes as the eager body:
+    the same events."""
+
+    def __init__(self, sync: Synchronizer, key: tuple, raw: torch.Tensor):
+        lay, c, ctx, k = key
+        dev = raw.device
+        self.raw = torch.empty(raw.shape, dtype=raw.dtype, device=dev)
+        self.raw.copy_(raw)
+        self.n0 = torch.full((), c, dtype=torch.int64, device=dev)
+        self.carry = sync.scan_start()
+        lo = ctx + sync._lead(lay)
+
+        def body():
+            seg = sync._front(lay, self.raw, self.n0 - lo,
+                              ctx + c + 2 * sync.L)
+            t_c, psh_c = sync._metrics_at(seg, False, c, ctx)
+            return sync._chunk_finish(t_c, psh_c, self.n0, self.carry, k)
+
+        here = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            body()              # cuBLAS and the allocator warm, off-graph
+        here.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with wait("sync.graph"):    # the capture synchronises the card
+            with torch.cuda.graph(self.graph, stream=side):
+                self.out = body()
+
+    def step(self, raw: torch.Tensor, n0: int, carry):
+        """One chunk: ``raw`` its samples, (firsts, carry) out as
+        :meth:`Synchronizer._chunk_body` returns them, copies the next
+        replay does not overwrite."""
+        self.raw.copy_(raw)
+        self.n0.fill_(n0)
+        for dst, src in zip((self.carry[0],) + self.carry[1],
+                            (carry[0],) + tuple(carry[1])):
+            dst.copy_(src)
+        self.graph.replay()
+        firsts, (s, best) = self.out
+        return firsts.clone(), (s.clone(), tuple(b.clone() for b in best))
+
+
 class Synchronizer:
     """Per-config Schmidl-Cox detector (operates at L = symbol_len / 2).
 
@@ -269,6 +353,8 @@ class Synchronizer:
         self.front_lead = front_lead(self.dc_window, self.taps)
         self.last_chunks = 0    # chunks the last scan walked
         self.last_rank_chunks = 0   # of them, the ones this rank computed
+        self.last_rounds = 0    # its rounds, one host read each
+        self._graphs: dict = {}     # _ChunkGraph by (layout, c, ctx, k)
         # a mesh.Mesh shards the scan's chunk axis over its ranks
         # (parallel.sharded_sync); None walks every chunk here
         self.mesh = None
@@ -404,7 +490,6 @@ class Synchronizer:
         DC block and the Hilbert filter, whose DC count clamps at the
         absolute recording start.  A StreamBuffer of analytic samples
         (``bits`` None) gives its windows as they are."""
-        from . import ingest
         if isinstance(x, torch.Tensor):
             with upload("sync.starts", starts, self.device):
                 starts = torch.as_tensor(starts, dtype=torch.int64,
@@ -413,34 +498,73 @@ class Synchronizer:
         if x.bits is None:
             return x.raw_windows(starts, out_len, self.device)
         starts = torch.as_tensor(starts, dtype=torch.int64)
-        mono = x.channels == 1
-        lead = self.front_lead if mono else 0
+        lead = self._lead(layout(x))
         raw = x.raw_windows(starts - lead, lead + out_len, self.device)
-        if mono:
+        abs0 = None
+        if lead:
             with upload("sync.starts", starts, self.device):
                 abs0 = (starts - lead).to(self.device)
-            return ingest.analytic_chunk(raw, abs0, lead, out_len, x.bits,
-                                         self.dc_window, self.taps)
-        iq = ingest.dequant(raw, x.bits)
+        return self._front(layout(x), raw, abs0, out_len)
+
+    def _lead(self, lay) -> int:
+        """Raw samples ahead of an analytic window's first for input of
+        :func:`layout` ``lay``: ``front_lead`` for mono PCM, else 0."""
+        bits, channels = lay
+        return self.front_lead if bits is not None and channels == 1 else 0
+
+    def _front(self, lay, raw: torch.Tensor, abs0, out_len: int):
+        """Samples of input of :func:`layout` ``lay`` -> analytic [...,
+        out_len]: mono PCM ``raw`` [..., front_lead + out_len] whose first
+        sample is absolute index ``abs0`` (an int, or a device tensor of
+        the leading shape) through the DC block and the Hilbert filter,
+        stereo I/Q dequantised, analytic samples as they are."""
+        from . import ingest
+        bits, channels = lay
+        if bits is None:
+            return raw
+        if channels == 1:
+            return ingest.analytic_chunk(raw, abs0, self.front_lead, out_len,
+                                         bits, self.dc_window, self.taps)
+        iq = ingest.dequant(raw, bits)
         return torch.complex(iq[..., 0], iq[..., 1])
+
+    def _raw_segment(self, x, n0: int, c: int, ctx: int) -> torch.Tensor:
+        """A chunk's samples before the front end: absolute [n0 - ctx -
+        lead, n0 + c + 2L) (:meth:`_lead`), zero or quantised silence
+        outside the recording, cut with host ints: sliced from an
+        analytic recording or a PcmRecording's device copy
+        (:func:`cut_span`), or copied from a StreamBuffer as one window."""
+        lead = self._lead(layout(x))
+        lo, n = n0 - ctx - lead, lead + ctx + c + 2 * self.L
+        if isinstance(x, torch.Tensor):
+            return cut_span(x, lo, n, 0)
+        return x.segment(lo, n, self.device)
 
     def _segment(self, x, n0: int, c: int, ctx: int) -> torch.Tensor:
         """The analytic samples [n0 - ctx, n0 + c + 2L) of a chunk, zero
-        outside the recording (:meth:`windows`)."""
-        return self.windows(x, [n0 - ctx], ctx + c + 2 * self.L)[0]
+        outside the recording, as :meth:`windows` cuts them but from host
+        ints (:meth:`_raw_segment`)."""
+        lay = layout(x)
+        return self._front(lay, self._raw_segment(x, n0, c, ctx),
+                           n0 - ctx - self._lead(lay), ctx + c + 2 * self.L)
 
     def _chunk_metrics(self, x, n0: int, c: int, ctx: int):
         """The carry-free part of one chunk of the scan: (timing, the
         phase read at n - match_del), each [c], of outputs [n0, n0 + c)
         with a left context of ``ctx`` samples (zero padding before the
         recording, whose products are masked)."""
+        return self._metrics_at(self._segment(x, n0, c, ctx), n0 == 0, c,
+                                ctx)
+
+    def _metrics_at(self, seg: torch.Tensor, first: bool, c: int, ctx: int):
+        """:meth:`_chunk_metrics` of a chunk's analytic segment; ``first``:
+        the chunk starts the recording."""
         md = self.match_del
-        seg = self._segment(x, n0, c, ctx)
-        t, p = self._metrics(seg, valid_from=ctx if n0 == 0 else 0)
+        t, p = self._metrics(seg, valid_from=ctx if first else 0)
         # the phase read at n - match_del; clamped to index 0 at the
         # recording start, as the JAX package's host walk reads it
         psh_c = p[ctx - md: ctx + c - md].clone()
-        if n0 == 0:
+        if first:
             psh_c[:md] = p[ctx]
         return t[ctx: ctx + c], psh_c
 
@@ -458,95 +582,106 @@ class Synchronizer:
         at = first.clamp(max=t_c.shape[0] - 1)
         return s, f, seg_id, vmax, n0 + first, psh_c[at]
 
-    def _chunk_events(self, x, n0: int, c: int, ctx: int, state, best):
-        """One chunk of the device scan: outputs [n0, n0 + c).  ``state``:
-        the Schmitt state before n0; ``best``: (value, index, phase) of
-        the collect region open at n0.  Returns (edges [k]
-        chunk-relative, n_max [k], phase [k], state, best) with the
-        carries for the next chunk, all tensors."""
+    def _chunk_body(self, x, n0: int, c: int, ctx: int, carry, k: int):
+        """One chunk of the scan, device work only: outputs [n0, n0 + c)
+        with ``carry`` = (Schmitt state, (value, index, phase) of the
+        collect region open at n0), device tensors.  Returns the chunk's
+        first ``k`` falling edges (:func:`_first_edges`) and the carry for
+        the next chunk.  On the card a chunk past the recording start
+        replays the body's CUDA graph (:class:`_ChunkGraph`)."""
+        if n0 and self.device.type == "cuda":
+            key = (layout(x), c, ctx, k)
+            graph = self._graphs.get(key)
+            raw = self._raw_segment(x, n0, c, ctx)
+            if graph is None:
+                graph = self._graphs[key] = _ChunkGraph(self, key, raw)
+            return graph.step(raw, n0, carry)
         t_c, psh_c = self._chunk_metrics(x, n0, c, ctx)
-        s, f, seg_id, vmax, idx, ph = regions = self._chunk_regions(
-            t_c, psh_c, n0, state)
+        return self._chunk_finish(t_c, psh_c, n0, carry, k)
+
+    def _chunk_finish(self, t_c, psh_c, n0, carry, k: int):
+        """The carry-dependent part of a chunk (:meth:`_chunk_body`) from
+        its metrics; ``n0`` an int or a 0-d device tensor.  The carry for
+        the next chunk is read from the chunk's last region by
+        ``index_select`` (a 0-d tensor index would read it on the host)."""
+        state, best = carry
+        regions = self._chunk_regions(t_c, psh_c, n0, state)
         continue_region(regions, best)
-        with wait("sync.nonzero"):
-            edges = torch.nonzero(f)[:, 0]
-        e_seg = seg_id[edges]
-        last = seg_id[-1]
-        out = (edges, idx[e_seg], ph[e_seg], s[-1])
-        # a 0-d tensor index is read on the host, once a carry
-        with wait("sync.carry"):
-            v = vmax[last]
-        with wait("sync.carry"):
-            i = idx[last]
-        with wait("sync.carry"):
-            p = ph[last]
-        return out + ((v, i, p),)
+        s, _f, seg_id, vmax, idx, ph = regions
+        last = seg_id[-1:]
+        best = tuple(v.index_select(0, last)[0] for v in (vmax, idx, ph))
+        return _first_edges(regions, k), (s[-1], best)
 
     def scan_start(self):
         """The scan's carries at the recording start: (Schmitt state, (value,
-        index, phase) of the open collect region), device tensors."""
-        dev = self.device
-        carry = []
-        for v in (False, -math.inf, 0, 0.0):
-            with wait("sync.start"):
-                carry.append(torch.tensor(v, device=dev))
+        index, phase) of the open collect region), device tensors filled
+        on the device."""
+        carry = [torch.full((), v, device=self.device)
+                 for v in (False, -math.inf, 0, 0.0)]
         return carry[0], tuple(carry[1:])
 
     def chunk_step(self, x, n0: int, c: int, ctx: int, carry, n_out: int,
                    max_edges: int | None = None):
-        """One chunk of the scan, for a caller that walks the chunks itself
-        (the whole-recording scan, a stream): outputs [n0, n0 + c) of
-        ``x`` (analytic [T], a PcmRecording, or a StreamBuffer whose
-        samples start at an absolute origin; ``n0`` is absolute) with
-        ``carry`` from :meth:`scan_start` or the chunk before, (c, ctx)
-        from :meth:`_context`.  Returns ((edge, n_max, phase) of the first
+        """One chunk of the scan, for a caller that must know each chunk's
+        events before the next (a stream): outputs [n0, n0 + c) of ``x``
+        (analytic [T], a PcmRecording, or a StreamBuffer whose samples
+        start at an absolute origin; ``n0`` is absolute) with ``carry``
+        from :meth:`scan_start` or the chunk before, (c, ctx) from
+        :meth:`_context`.  Returns ((edge, n_max, phase) of the first
         ``max_edges`` falling edges of the chunk, edge < n_out, in one
         small host copy; the carry for the next chunk)."""
-        edges, nmax, ph, state, best = self._chunk_events(x, n0, c, ctx,
-                                                          *carry)
-        events = []
-        if edges.numel():
-            if max_edges is not None:
-                edges, nmax, ph = (v[:max_edges] for v in (edges, nmax, ph))
-            with wait("sync.events"):
-                host = torch.stack([edges + n0, nmax]).cpu().numpy()
-            with wait("sync.events"):
-                phs = ph.cpu().numpy()
-            for e, nm, q in zip(host[0], host[1], phs):
-                if e < n_out:
-                    events.append((int(e), int(nm), float(q)))
-        return events, (state, best)
+        k = c if max_edges is None else min(max_edges, c)
+        firsts, carry = self._chunk_body(x, n0, c, ctx, carry, k)
+        with wait("sync.events"):
+            rows = firsts.cpu().numpy()
+        return _edge_events(n0, rows, n_out), carry
+
+    # the walk goes in rounds of up to this many chunks, one host read a
+    # round; the sharded walk rounds it up to a multiple of the mesh's
+    # size (the JAX package's super-batch)
+    MAX_CHUNKS_PER_ROUND = 16
 
     def _events_device(self, x, chunk_samples: int, max_edges: int):
         """(edge, n_max, phase[n_max - match_del]) for the first
         ``max_edges`` falling edges, walking the recording (analytic [T]
         or a PcmRecording) chunk by chunk on the synchroniser's device
         with the Schmitt state and the running argmax carried across
-        chunk boundaries (:meth:`chunk_step`); with ``mesh`` set, the
-        chunks shard over its ranks (:meth:`_events_sharded`).  Sets
-        ``last_chunks`` to the number of chunks walked, and
-        ``last_rank_chunks`` to the number this rank computed."""
+        chunk boundaries on the device (:meth:`_chunk_body`); with
+        ``mesh`` set, the chunks shard over its ranks
+        (:meth:`_events_sharded`).  The walk goes in rounds of
+        MAX_CHUNKS_PER_ROUND chunks whose first edges come back in one
+        host read (a ``sync.round`` wait), and stops after the round that
+        brings ``max_edges`` events: an edge among the recording's first
+        ``max_edges`` is among its chunk's first.  Sets ``last_chunks``
+        to the number of chunks walked, ``last_rank_chunks`` to the
+        number this rank computed, and ``last_rounds`` to the rounds."""
         if self.mesh is not None:
             return self._events_sharded(x, chunk_samples, max_edges)
         n_out = x.shape[0] - 2 * self.L
-        self.last_chunks = 0
+        self.last_chunks = self.last_rounds = 0
         if n_out <= 0:
             return []
         c, ctx = self._context(chunk_samples)
+        k = min(max_edges, c)
+        n0s = range(0, n_out, c)
         carry = self.scan_start()
         events = []
-        for n0 in range(0, n_out, c):
-            self.last_chunks += 1
-            got, carry = self.chunk_step(x, n0, c, ctx, carry, n_out)
-            events += got
+        for g0 in range(0, len(n0s), self.MAX_CHUNKS_PER_ROUND):
             if len(events) >= max_edges:
                 break
+            walk = n0s[g0: g0 + self.MAX_CHUNKS_PER_ROUND]
+            firsts = []
+            for n0 in walk:
+                got, carry = self._chunk_body(x, n0, c, ctx, carry, k)
+                firsts.append(got)
+            with wait("sync.round"):
+                rows = torch.stack(firsts).cpu().numpy()
+            for n0, r in zip(walk, rows):
+                events += _edge_events(n0, r, n_out)
+            self.last_chunks += len(walk)
+            self.last_rounds += 1
         self.last_rank_chunks = self.last_chunks
         return events[:max_edges]
-
-    # the sharded walk goes in rounds of up to this many chunks, rounded
-    # up to a multiple of the mesh's size (the JAX package's super-batch)
-    MAX_CHUNKS_PER_ROUND = 16
 
     def _events_sharded(self, x, chunk_samples: int, max_edges: int):
         """:meth:`_events_device` with the chunk axis sharded over the
@@ -581,7 +716,7 @@ class Synchronizer:
         recording's first ``max_edges`` is among its chunk's first."""
         mesh, dev = self.mesh, self.device
         n_out = x.shape[0] - 2 * self.L
-        self.last_chunks = self.last_rank_chunks = 0
+        self.last_chunks = self.last_rank_chunks = self.last_rounds = 0
         if n_out <= 0:
             return []
         c, ctx = self._context(chunk_samples)
@@ -635,9 +770,9 @@ class Synchronizer:
                 firsts.append(_first_edges(regions, k))
             got = all_gather_rows(torch.stack(firsts), mesh).cpu().numpy()
             for n0, rows in zip(n0s, got):
-                events += [(int(n0 + e), int(nm), float(ph))
-                           for e, nm, ph in rows if 0 <= e and n0 + e < n_out]
+                events += _edge_events(n0, rows, n_out)
             self.last_chunks += sum(n0 < n_out for n0 in n0s)
+            self.last_rounds += 1
             g0 += m
         return events[:max_edges]
 

@@ -23,7 +23,7 @@ import torch
 from modem_tpu_torch import bits as B
 from modem_tpu_torch import profiling
 from modem_tpu_torch.card import GRAPH_CALLS, GRAPH_REPLAYS, graph_ms
-from modem_tpu_torch.decoder import Decoder
+from modem_tpu_torch.decoder import Decoder, cached_decoder
 from modem_tpu_torch.encoder import Encoder
 from modem_tpu_torch.fec.bch import generator_matrix
 from modem_tpu_torch.fec.osd import osd_decode
@@ -46,7 +46,7 @@ from modem_tpu_torch.ingest import PcmRecording
 from modem_tpu_torch.numerology import make_config, toy_config
 from modem_tpu_torch.pipeline import (AdaptivePipeline, BatchPipeline,
                                       decode_recording_auto)
-from modem_tpu_torch.sync import Synchronizer
+from modem_tpu_torch.sync import Synchronizer, _edge_events
 from modem_tpu_torch.probes import _common, interleave, p256, rank3
 
 # (n, k, order, sigma) as tests/test_torch_sc_decode.py and
@@ -275,29 +275,49 @@ def _syncs_and_flags(fn):
 def test_syncs_count_every_wait_for_the_card(cuda_device):
     """profiling.syncs against torch's own sync debug mode: on a clean
     batch, an escalating batch (the card's recordings; and a clean one
-    from the host, whose upload waits) and a mono golden decode, the
-    counter equals the synchronising operations torch flags, plus the
-    batch's event synchronise, which the mode does not flag.  The golden
-    decode's OSD elimination is one kernel launch: it counts 255 waits
-    fewer than with the plain column loop on the card."""
+    from the host, whose upload waits), a mono golden decode and an
+    adaptive decode-all of a mono int16 recording whose scan walks
+    several chunks, the counter equals the synchronising operations torch
+    flags, plus the event synchronise of each batch, which the mode does
+    not flag.  The golden decode's OSD elimination is one kernel launch:
+    it counts 255 waits fewer than with the plain column loop on the
+    card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     pipe = toy_pipeline(AdaptivePipeline, cuda_device, list_size=4)
     clean = torch.as_tensor(toy_batches()[0.0]).to(cuda_device)
     noisy = torch.as_tensor(toy_batches()[0.3]).to(cuda_device)
     dec = Decoder(8000, device=cuda_device)
     samples = read_golden().real.copy()
+    rec, sent = two_mode_recording(8000, (10, 12))
+    rec = np.concatenate([np.zeros(3 * Synchronizer.CHUNK_SMALL,
+                                   rec.dtype), rec])
+    pcm = int16_pcm(rec, stereo=False)
+    got: dict = {}
+
+    def recording():
+        got["frames"] = decode_recording_auto(
+            pcm, 8000, channels=1, adaptive=True, device=cuda_device)
+
     runs = {"clean": lambda: pipe.decode_batch(clean),
             "escalating": lambda: pipe.decode_batch(noisy),
             "host clean": lambda: pipe.decode_batch(toy_batches()[0.0]),
-            "decode": lambda: dec.decode(samples, channels=1)}
+            "decode": lambda: dec.decode(samples, channels=1),
+            "recording": recording}
     for fn in runs.values():            # builds, plans and tables first
         fn()
+    # one batch (one event) a mode group of the recording's frames
+    groups = len({f["mode"] for f in got["frames"]})
+    assert [(f["mode"], f["ok"]) for f in got["frames"]] == [
+        (mode, True) for mode, _call, _payload in sent]
     for name, fn in runs.items():
         syncs, flagged = _syncs_and_flags(fn)
-        events = 0 if name == "decode" else 1
+        events = {"decode": 0, "recording": groups}.get(name, 1)
         assert syncs == len(flagged) + events, (name, syncs, flagged)
         if name == "escalating":
             assert pipe.last_fallbacks > 0
+    scan = cached_decoder(8000, mls_convention="galois",
+                          device=cuda_device).sync
+    assert scan.last_chunks > 1 and scan.last_rounds == 1
     assert len(_syncs_and_flags(runs["clean"])[1]) == 0
     launches = osd_eliminate.launches
     kernel, _ = _syncs_and_flags(runs["decode"])
@@ -886,6 +906,36 @@ def test_pcm_scan_on_card(cuda_device, bits, stereo):
     assert sum(c.ok for c in got) == 2
     assert np.allclose([c.cfo_rad for c in got], [c.cfo_rad for c in want],
                        atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,stereo", [(16, False), (16, True),
+                                         (8, False)])
+def test_scan_graph_equals_eager_on_card(cuda_device, bits, stereo):
+    """The chunk walk on the card, whose chunks past the recording start
+    replay the chunk body's CUDA graph, gives the events of the eager
+    body walked chunk by chunk on the card, phases and all, at two chunk
+    sizes and edge counts (the second stops at the first of the
+    recording's two edges)."""
+    rec, _ = two_mode_recording(8000, (10, 12))
+    pcm = int16_pcm(rec, stereo, bits)
+    cfg = dataclasses.replace(make_config(8000, 6), freq_off=0)
+    card = Synchronizer(cfg, cuda_device)
+    n_out = pcm.n_samples - 2 * card.L
+    for chunk, max_edges in ((1 << 14, 32), (1 << 12, 1)):
+        got = card._events_device(pcm, chunk, max_edges)
+        assert card.last_chunks > 1 and len(card._graphs) >= 1
+        c, ctx = card._context(chunk)
+        carry, want = card.scan_start(), []
+        for n0 in range(0, n_out, c):
+            t_c, psh_c = card._chunk_metrics(pcm, n0, c, ctx)
+            firsts, carry = card._chunk_finish(t_c, psh_c, n0, carry,
+                                               min(max_edges, c))
+            want += _edge_events(n0, firsts.cpu().numpy(), n_out)
+            if len(want) >= max_edges:
+                break
+        assert got == want[:max_edges], chunk
+        assert len(got) == min(max_edges, 2)
 
 
 @pytest.mark.cuda

@@ -528,7 +528,7 @@ def test_decode_spans_nest_in_one_request(traced_decodes):
             ("osd.column", "osd.eliminate"),
             ("frontend.upload", "decoder.frontend"),
             ("frontend.taps", "decoder.frontend"),
-            ("sync.nonzero", "decoder.scan"),
+            ("sync.round", "decoder.scan"),
             ("sync.fine", "decoder.scan"),
             ("decoder.upload", "decoder.demod"),
             ("decoder.fetch", "decoder.list")} <= pairs

@@ -18,7 +18,9 @@ seeded noise, quantised to int16 or uint8, mono or stereo):
 - ``Synchronizer.scan`` on a PcmRecording against the JAX scan of the
   same PCM: p0, ok and conv exact, cfo_rad within 1e-5; the raw events
   (edge, n_max) exact, their phase within 1e-5 rad; the same events at
-  chunks of 1024, 2048 and the default;
+  chunks of 1024, 2048 and the default; the walk in rounds equal event
+  for event to a walk of ``chunk_step`` chunk by chunk, with one host
+  wait a round;
 - the frame windows cut from PCM within 1e-5 of JAX's (whose windows
   come from the scan's retained analytic recording: the DC sums regroup
   at the window starts here), and ``decode_recording`` on PCM equal to
@@ -41,7 +43,7 @@ from modem_tpu.ingest import PcmRecording as JaxPcm
 from modem_tpu.parallel import toy_config as jax_toy_config
 from modem_tpu.parallel import toy_pipeline
 from modem_tpu.sync import Synchronizer as JaxSynchronizer
-from modem_tpu_torch import channel, ingest, wav
+from modem_tpu_torch import channel, ingest, profiling, wav
 from modem_tpu_torch.ingest import PcmRecording
 from modem_tpu_torch.numerology import toy_config
 from modem_tpu_torch.pipeline import BatchPipeline
@@ -261,6 +263,64 @@ def test_pcm_events_same_at_chunk_sizes(pcm_cases, port_sync, bits,
         assert [e[:2] for e in got] == [e[:2] for e in base], chunk
         assert np.allclose([e[2] for e in got], [e[2] for e in base],
                            atol=1e-6), chunk
+
+
+def chunk_walk(sync, x, chunk: int, max_edges: int) -> list:
+    """The scan's raw events walked chunk by chunk through
+    ``Synchronizer.chunk_step`` (one host read a chunk), stopping after
+    the chunk that brings ``max_edges`` of them."""
+    c, ctx = sync._context(chunk)
+    n_out = x.shape[0] - 2 * sync.L
+    carry, events = sync.scan_start(), []
+    for n0 in range(0, n_out, c):
+        got, carry = sync.chunk_step(x, n0, c, ctx, carry, n_out, max_edges)
+        events += got
+        if len(events) >= max_edges:
+            break
+    return events[:max_edges]
+
+
+# (stereo, samples kept, max_edges): the mono recording has 48 raw edges,
+# more than 32; cut to 20,000 samples the walk at 2,048 ends mid-round;
+# at 4 edges it stops after its first round
+WALK_CASES = [(False, None, 32), (True, None, 32), (False, 20_000, 32),
+              (True, None, 4)]
+
+
+@pytest.mark.parametrize("chunk", [1024, 2048, Synchronizer.CHUNK_SMALL])
+@pytest.mark.parametrize("stereo,keep,max_edges", WALK_CASES)
+def test_pcm_round_walk_equals_chunk_walk(pcm_cases, port_sync, stereo,
+                                          keep, max_edges, chunk):
+    """_events_device, which reads each round of chunks back once, gives
+    the events of the walk that reads every chunk, event for event."""
+    q = pcm_cases[16, stereo][0].data[:keep]
+    pcm = PcmRecording(data=q, bits=16, rate=8000)
+    got = port_sync._events_device(pcm, chunk, max_edges)
+    assert got == chunk_walk(port_sync, pcm, chunk, max_edges)
+    assert len(got) == min(max_edges, len(chunk_walk(port_sync, pcm, chunk,
+                                                     10 ** 6)))
+    rounds = -(-port_sync.last_chunks // Synchronizer.MAX_CHUNKS_PER_ROUND)
+    assert port_sync.last_rounds == rounds >= 1
+
+
+@pytest.mark.parametrize("bits,stereo", PCM_CASES)
+def test_pcm_walk_waits_once_a_round(pcm_cases, port_sync, bits, stereo):
+    """profiling.syncs over the walk grows with its rounds, not with its
+    chunks: at chunks of 1024 (two rounds) and 2048 (one) the counts
+    differ by no more than the rounds do, each at most a wait a round
+    and one more."""
+    pcm = pcm_cases[bits, stereo][0]
+    port_sync._events_device(pcm, 1024, 1000)    # the taps to the device
+    counts, rounds = [], []
+    for chunk in (1024, 2048):
+        s0 = profiling.syncs
+        port_sync._events_device(pcm, chunk, 1000)
+        counts.append(profiling.syncs - s0)
+        rounds.append(port_sync.last_rounds)
+        assert counts[-1] <= rounds[-1] + 1
+        assert port_sync.last_chunks > rounds[-1]
+    assert rounds == [2, 1]
+    assert abs(counts[0] - counts[1]) <= abs(rounds[0] - rounds[1])
 
 
 @pytest.mark.parametrize("bits,stereo", PCM_CASES)
